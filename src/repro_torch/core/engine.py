@@ -1,0 +1,362 @@
+"""Vectorized federated-AL engine (paper Algorithm 1, batched; the port of
+``repro.core.engine``).
+
+The reference compiles one round — R acquisitions × D devices — into one
+XLA program: a ``vmap`` over devices of a ``scan`` over acquisitions.  The
+port writes both out: every tensor of the fleet carries a leading device
+axis ``[D, ...]`` and the acquisitions are a Python loop, so each
+acquisition is one batched pass over all devices:
+
+  window draw → MC-dropout log-probs ``[D, T, W, C]`` → acquisition scores
+  (the fused acquisition-score kernel for entropy / BALD / VR) → top-k →
+  ``vpool.acquire`` → masked full-batch fit on seed ∪ acquired.
+
+``run_rounds_fused`` adds the fog node (the reference's in-compile fog):
+per round, the per-device validation accuracy, the Eq. 1 weights over the
+participants, the stacked reduce through the fused-aggregation kernel
+(``aggregation.aggregate_stacked``), and re-dispatch.  This slice ports its
+base path; the comms / hetero / faults / guards / churn / topology / fleet
+options raise ``NotImplementedError`` naming their ROADMAP item.
+
+Randomness comes from one ``torch.Generator`` per round on the engine's
+device (``EngineState.rng``), seeded from ``cfg.seed`` and the absolute
+round index, never from global state.  Its bits are not the reference's
+threefry bits, so parity tests run the RNG-free configuration (dropout
+off, the window covering the whole pool).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import acquisition as acq
+from repro_torch.core import aggregation as agg_mod
+from repro_torch.core import counters, vpool
+from repro_torch.device import resolve_device
+from repro_torch.kernels.acquisition_scores import acquisition_scores
+from repro_torch.tree import tree_map
+
+_AGGREGATIONS = ("average", "weighted", "optimal", "fedavg_n")
+
+_FUSED_SCORES = ("entropy", "bald", "vr")
+
+# options of the reference's run_rounds_fused that later slices port
+_UNPORTED_FUSED = {
+    "comms": "Queue 1 item 9 (comms)",
+    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
+    "faults": "Queue 1 item 11 (faults and checkpoints)",
+    "guards": "Queue 1 item 11 (faults and checkpoints)",
+    "live_mask": "Queue 1 item 11 (faults and checkpoints)",
+    "topology": "Queue 1 item 13 (fog topology and sharding)",
+    "fleet": "Queue 1 item 14 (streaming and scenarios)",
+}
+
+
+def reject_unported(where: str, table: Dict[str, str], **options) -> None:
+    """Raise ``NotImplementedError`` for the first option in ``options``
+    that is set, naming the ROADMAP item that ports it."""
+    for name, value in options.items():
+        if value is not None:
+            raise NotImplementedError(
+                f"{where}({name}=...) is not ported yet: ROADMAP.md "
+                f"{table[name]}")
+
+
+class EngineState(NamedTuple):
+    """Per-device state, stacked along a leading device axis D.  ``rng`` is
+    the generator the next round draws from."""
+    params: Any           # [D, ...] tree
+    opt_state: Any        # [D, ...] tree
+    pool: vpool.VPool     # [D, ...] fields
+    rng: torch.Generator
+
+
+def stack_device_data(device_data: Sequence, device):
+    """Pad ragged device shards to a common length and stack.
+
+    Returns ``(images [D, n_pad, ...], labels [D, n_pad] int64, valid [D,
+    n_pad] bool)`` on ``device``.  Padding slots are invalid and are born
+    "labeled" in the pool, so the window draw never selects them."""
+    D = len(device_data)
+    n_pad = max(len(d) for d in device_data)
+    img_shape = device_data[0].images.shape[1:]
+    images = np.zeros((D, n_pad) + img_shape,
+                      np.asarray(device_data[0].images).dtype)
+    labels = np.zeros((D, n_pad), np.int64)
+    valid = np.zeros((D, n_pad), bool)
+    for i, d in enumerate(device_data):
+        n = len(d)
+        images[i, :n] = d.images
+        labels[i, :n] = d.labels
+        valid[i, :n] = True
+    as_t = lambda a: torch.from_numpy(a).to(device)
+    return as_t(images), as_t(labels), as_t(valid)
+
+
+def broadcast_params(params0, D: int):
+    """One model → the same model on every one of D devices ``[D, ...]``."""
+    return tree_map(lambda a: a.unsqueeze(0).expand(D, *a.shape).clone(),
+                    params0)
+
+
+class EdgeEngine:
+    """Vectorized round executor over a fixed device fleet."""
+
+    def __init__(self, trainer, cfg, device_data: Sequence, seed_data,
+                 test_set=None, *, total_acquisitions: Optional[int] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        if trainer.device != self.device:
+            raise ValueError(f"trainer on {trainer.device}, engine on "
+                             f"{self.device}")
+        self.trainer = trainer
+        self.cfg = cfg
+        self.num_devices = len(device_data)
+        self.images, self.labels, self.valid = stack_device_data(
+            device_data, self.device)
+        n_pad = self.images.shape[1]
+        self.window = min(cfg.pool_window, n_pad)
+        self.k = min(cfg.k_per_acquisition, self.window)
+        self.capacity = (total_acquisitions or cfg.acquisitions) * self.k
+        to_dev = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt,
+                                               device=self.device)
+        if seed_data is not None and len(seed_data) > 0:
+            self.seed_images = to_dev(seed_data.images, self.images.dtype)
+            self.seed_labels = to_dev(seed_data.labels, torch.int64)
+        else:
+            self.seed_images = self.images.new_zeros(
+                (0,) + tuple(self.images.shape[2:]))
+            self.seed_labels = self.labels.new_zeros((0,))
+        if test_set is not None and len(test_set) > 0:
+            self.test_images = to_dev(test_set.images, self.images.dtype)
+            self.test_labels = to_dev(test_set.labels, torch.int64)
+        else:
+            self.test_images = self.test_labels = None
+
+    # ------------------------------------------------------------ state
+    def device_generator(self, round_idx: int = 0) -> torch.Generator:
+        """The generator round ``round_idx`` draws from (absolute index, so
+        chained calls and re-dispatches never replay a round's draws)."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed + 7919 + 104729 * round_idx)
+
+    def init_state(self, params0, *, round_idx: int = 0) -> EngineState:
+        D = self.num_devices
+        params = broadcast_params(params0, D)
+        return EngineState(params, self.trainer.opt.init(params),
+                           vpool.vpool_init(self.valid, self.capacity),
+                           self.device_generator(round_idx))
+
+    def set_params(self, state: EngineState, params0, *,
+                   round_idx: int = 0) -> EngineState:
+        """Re-dispatch an aggregated model to the fleet (pools persist,
+        optimizer state and generator reset)."""
+        params = broadcast_params(params0, self.num_devices)
+        return EngineState(params, self.trainer.opt.init(params), state.pool,
+                           self.device_generator(round_idx))
+
+    def device_params_list(self, state: EngineState) -> List:
+        return agg_mod.unstack_models(state.params)
+
+    def labeled_counts(self, state: EngineState) -> List[int]:
+        """Per-device labeled-sample counts n_i (the fedavg_n weights)."""
+        return [int(n) for n in vpool.n_labeled(state.pool).tolist()]
+
+    def _check_capacity(self, state: EngineState, *, rounds: int = 1):
+        """A round appends R·k slots per device; the slot write clamps past
+        capacity (as ``dynamic_update_slice`` does), so fail loudly."""
+        need = int(state.pool.n_filled.max()) \
+            + rounds * self.cfg.acquisitions * self.k
+        if need > self.capacity:
+            raise ValueError(
+                f"pool capacity {self.capacity} cannot absorb {rounds} "
+                f"round(s) (would need {need} slots); construct EdgeEngine "
+                f"with total_acquisitions covering all rounds")
+
+    # ------------------------------------------------------------ the step
+    def _scores(self, params, x_win, gen):
+        """MC-dropout scores ``[D, W]`` of the window images ``[D, W, ...]``;
+        higher = more informative."""
+        cfg, trainer = self.cfg, self.trainer
+        logp = trainer.score_logprobs(params, x_win, gen, cfg.mc_samples)
+        if cfg.acquisition_fn in _FUSED_SCORES:
+            ent, bald, vr = acquisition_scores(logp)
+            return {"entropy": ent, "bald": bald, "vr": vr}[cfg.acquisition_fn]
+        return acq.acquisition_scores(cfg.acquisition_fn, logp)
+
+    def _acquisition(self, params, opt_state, pool, gen, *,
+                     record_curves: bool):
+        """One acquisition for every device at once."""
+        D = self.num_devices
+        rows = torch.arange(D, device=self.device)[:, None]
+        win_idx, win_valid = vpool.draw_window(pool, gen, self.window)
+        if self.cfg.acquisition_fn == "random":
+            scores = torch.rand(win_idx.shape, generator=gen,
+                                device=self.device)
+        else:
+            scores = self._scores(params, self.images[rows, win_idx], gen)
+        scores = torch.where(win_valid, scores,
+                             torch.full_like(scores, -float("inf")))
+        sel = acq.select_topk(scores, self.k)
+        sel_valid = torch.gather(win_valid, 1, sel)
+        pool = vpool.acquire(pool, win_idx, sel, sel_valid)
+
+        # fixed-capacity masked training set: seed ∪ acquired
+        gidx = pool.labeled_idx.long().clamp(min=0)
+        m0 = self.seed_images.shape[0]
+        x = torch.cat([self.seed_images.unsqueeze(0).expand(
+            D, *self.seed_images.shape), self.images[rows, gidx]], dim=1)
+        y = torch.cat([self.seed_labels.unsqueeze(0).expand(D, m0),
+                       self.labels[rows, gidx]], dim=1)
+        m = torch.cat([torch.ones((D, m0), device=self.device),
+                       pool.labeled_valid.float()], dim=1)
+        params, opt_state = self.trainer.fit_steps(
+            params, opt_state, x, y, m, gen, self.cfg.train_steps_per_acq)
+
+        rec = {"n_labeled": vpool.n_labeled(pool),
+               "selected": torch.where(sel_valid,
+                                       torch.gather(win_idx, 1, sel), -1)}
+        if record_curves:
+            rec["test_acc"] = agg_mod.stacked_accuracy(
+                self.trainer.eval_logits, params, self.test_images,
+                self.test_labels)
+        return params, opt_state, pool, rec
+
+    def _round(self, params, opt_state, pool, gen, *, record_curves: bool):
+        recs = []
+        for _ in range(self.cfg.acquisitions):
+            params, opt_state, pool, rec = self._acquisition(
+                params, opt_state, pool, gen, record_curves=record_curves)
+            recs.append(rec)
+        stacked = {k: torch.stack([r[k] for r in recs], dim=1)
+                   for k in recs[0]}                       # [D, R, ...]
+        return params, opt_state, pool, stacked
+
+    # ------------------------------------------------------------ rounds
+    def run_round(self, state: EngineState, *, record_curves: bool = True):
+        """R acquisitions × D devices.  Returns ``(state, recs)`` with
+        ``recs`` ``[D, R, ...]``: ``n_labeled``, ``selected`` and (with a
+        test set and ``record_curves``) ``test_acc``."""
+        record = record_curves and self.test_images is not None
+        self._check_capacity(state)
+        counters.count_dispatch()
+        params, opt_state, pool, recs = self._round(
+            state.params, state.opt_state, state.pool, state.rng,
+            record_curves=record)
+        return EngineState(params, opt_state, pool, state.rng), recs
+
+    def run_rounds_fused(self, state: EngineState, rounds: int, *,
+                         upload_mask=None, upload_fraction: float = 1.0,
+                         aggregation: str = "fedavg_n", start_round: int = 0,
+                         comms=None, hetero=None, faults=None, guards=None,
+                         live_mask=None, topology=None, fleet=None):
+        """T federated rounds: device AL, per-device validation accuracy,
+        Eq. 1 over the participants through the fused-aggregation kernel,
+        re-dispatch.
+
+        ``aggregation`` ∈ average | weighted | optimal | fedavg_n (default:
+        α_i ∝ labeled counts n_i).  ``upload_mask`` (``[rounds, D]`` or
+        ``[D]``, truthy = uploaded) models partial participation;
+        ``upload_fraction < 1`` instead draws a Bernoulli mask per round
+        from a seed of ``(cfg.seed, absolute round)``.  Weights normalize
+        over the participants; everyone receives the aggregated model.
+        Pass ``start_round`` = rounds completed so far when chaining calls.
+
+        Returns ``(state, recs, aggregated_params)``: ``recs`` holds
+        ``[rounds, ...]`` rows ``weights``, ``upload_mask``, ``n_labeled``
+        (and ``device_accs`` / ``agg_acc`` with a validation set);
+        ``aggregated_params`` is the last round's fog model."""
+        reject_unported("run_rounds_fused", _UNPORTED_FUSED, comms=comms,
+                        hetero=hetero, faults=faults, guards=guards,
+                        live_mask=live_mask, topology=topology, fleet=fleet)
+        if aggregation not in _AGGREGATIONS:
+            raise ValueError(f"unknown aggregation {aggregation!r}: "
+                             f"use {' | '.join(_AGGREGATIONS)}")
+        has_val = self.test_images is not None
+        if aggregation in ("weighted", "optimal") and not has_val:
+            raise ValueError(
+                f"aggregation={aggregation!r} scores devices on a validation "
+                "set; construct EdgeEngine with test_set")
+        self._check_capacity(state, rounds=rounds)
+        D = self.num_devices
+        if upload_mask is not None:
+            m = np.asarray(upload_mask, np.float32)
+            if m.ndim == 1:
+                m = np.broadcast_to(m, (rounds, D))
+            if m.shape != (rounds, D):
+                raise ValueError(f"upload_mask shape {m.shape} != "
+                                 f"{(rounds, D)}")
+        elif upload_fraction < 1.0:
+            m = np.stack([
+                np.random.default_rng([self.cfg.seed + 0x6D61, t]).random(D)
+                < upload_fraction
+                for t in range(start_round, start_round + rounds)])
+        else:
+            m = np.ones((rounds, D), np.float32)
+        masks = torch.as_tensor(np.asarray(m, np.float32), device=self.device)
+
+        counters.count_dispatch()
+        trainer = self.trainer
+        params, opt_state, pool, gen = (state.params, state.opt_state,
+                                        state.pool, state.rng)
+        recs: Dict[str, list] = {}
+        agg = None
+        for t in range(rounds):
+            if t > 0:
+                gen = self.device_generator(start_round + t)
+            params, opt_state, pool, _ = self._round(
+                params, opt_state, pool, gen, record_curves=False)
+            mask = masks[t]
+            counts = vpool.n_labeled(pool).float()
+            accs = (agg_mod.stacked_accuracy(trainer.eval_logits, params,
+                                             self.test_images,
+                                             self.test_labels)
+                    if has_val else torch.zeros_like(counts))
+            if aggregation == "average":
+                raw = torch.ones_like(counts)
+            elif aggregation == "weighted":
+                raw = accs
+            elif aggregation == "fedavg_n":
+                raw = counts
+            else:  # optimal: one-hot at the best participant
+                masked = torch.where(mask > 0, accs,
+                                     torch.full_like(accs, -float("inf")))
+                raw = torch.nn.functional.one_hot(
+                    torch.argmax(masked), D).float()
+            w = agg_mod.masked_normalize(raw, mask)
+            with torch.no_grad():
+                agg = agg_mod.aggregate_stacked(params, w)
+            row = {"weights": w, "upload_mask": mask, "n_labeled": counts}
+            if has_val:
+                row["device_accs"] = accs
+                row["agg_acc"] = agg_mod.stacked_accuracy(
+                    trainer.eval_logits, broadcast_params(agg, 1),
+                    self.test_images, self.test_labels)[0]
+            for k, v in row.items():
+                recs.setdefault(k, []).append(v)
+            # re-dispatch: fresh optimizer, pools persist
+            params = broadcast_params(agg, D)
+            opt_state = trainer.opt.init(params)
+        out = {k: torch.stack(v) for k, v in recs.items()}
+        return EngineState(params, opt_state, pool, gen), out, agg
+
+    # ------------------------------------------------------------ reporting
+    def histories(self, recs) -> List[List[dict]]:
+        """Stacked records ``[D, R, ...]`` → per-device history dicts."""
+        n_lab = recs["n_labeled"].cpu().numpy()
+        sel = recs["selected"].cpu().numpy()
+        acc = recs["test_acc"].cpu().numpy() if "test_acc" in recs else None
+        out = []
+        for d in range(n_lab.shape[0]):
+            hist = []
+            for r in range(n_lab.shape[1]):
+                rec = {"device": d, "acquisition": r + 1,
+                       "n_labeled": int(n_lab[d, r]),
+                       "selected": sel[d, r][sel[d, r] >= 0].tolist()}
+                if acc is not None:
+                    rec["test_acc"] = float(acc[d, r])
+                hist.append(rec)
+            out.append(hist)
+        return out

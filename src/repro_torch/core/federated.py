@@ -1,0 +1,495 @@
+"""Fog-node / edge-device federated active-learning loop (paper Algorithm 1;
+the port of ``repro.core.federated``).
+
+Round structure (paper §III-B):
+  1. FN trains an initial model on m seed images.
+  2. FN dispatches the model to N edge devices.
+  3. Each device runs R pool-based AL acquisitions locally (MC-dropout BNN +
+     acquisition function, k new labels per acquisition, windowed pool).
+  4. Devices upload parameters; FN aggregates (Eq. 1).
+
+This slice ports the ``vmap`` engine (``EdgeEngine.run_round``, host-side
+Eq. 1) and the ``fused`` engine (``EdgeEngine.run_rounds_fused``, Eq. 1
+through the fused-aggregation kernel), and ``run_experiment`` for the
+``paper`` and ``massive`` scenarios.  Everything runs on ``device``
+(default ``"cuda"``; see ``repro_torch.device``).  Reports carry the
+reference's keys except ``"comms"``, which arrives with the comms slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import counters
+from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
+                                          weighted_average)
+from repro_torch.core.engine import EdgeEngine, reject_unported
+from repro_torch.core.mc_dropout import mc_logprobs
+from repro_torch.core.model_adapter import LeNetAdapter, ModelAdapter
+from repro_torch.data.digits import SyntheticDigits
+from repro_torch.device import resolve_device
+from repro_torch.nn.lenet import LeNetConfig
+from repro_torch.optim import adam
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+@dataclass(frozen=True)
+class FederatedALConfig:
+    """The experiment's root config (paper Algorithm 1 hyperparameters).
+
+    Defaults are the paper's non-massive setting: ``num_devices`` 4 edge
+    devices each run ``acquisitions`` 10 AL steps, labeling
+    ``k_per_acquisition`` 10 images from a ``pool_window`` of 200 scored
+    with ``mc_samples`` 16 MC-dropout forwards.  The fog node seeds with
+    ``initial_train`` 20 images trained ``initial_train_steps`` 60 Adam
+    steps; each acquisition retrains ``train_steps_per_acq`` 30 full-batch
+    steps at ``lr`` 1e-3.  ``acquisition_fn`` (entropy) and
+    ``aggregation`` (average, Eq. 1) pick the scoring and fog strategies;
+    ``seed`` drives every generator.  Training is full-batch with masking
+    (the reference's ``batch_size`` field is not carried over: no ported
+    path reads it).  ``adapter`` None = the paper's LeNet."""
+
+    num_devices: int = 4
+    initial_train: int = 20
+    acquisitions: int = 10
+    k_per_acquisition: int = 10
+    pool_window: int = 200
+    mc_samples: int = 16
+    acquisition_fn: str = "entropy"  # entropy | bald | vr | random | margin | ...
+    aggregation: str = "average"     # average | optimal | weighted | fedavg_n
+    train_steps_per_acq: int = 30
+    initial_train_steps: int = 60
+    lr: float = 1e-3
+    seed: int = 0
+    adapter: Optional[ModelAdapter] = None  # None = LeNet (the paper)
+
+
+class Trainer:
+    """Train / score / eval bundle for one model family on one device.
+
+    Every method takes STACKED params ``[D, ...]`` except ``fit`` /
+    ``accuracy`` / ``init_params``, which work on one model.  Training
+    differentiates the sum of the per-device masked losses with torch
+    autograd, which gives each device its own gradient."""
+
+    # rows per batched no-grad forward (devices × images): bounds the
+    # memory of the im2col patches of a D=256 fleet on a validation set
+    EVAL_ROWS = 16384
+
+    def __init__(self, cfg: FederatedALConfig,
+                 model_cfg: LeNetConfig = LeNetConfig(),
+                 adapter: Optional[ModelAdapter] = None, *, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if adapter is None:
+            adapter = cfg.adapter
+        if adapter is None:
+            adapter = LeNetAdapter(model_cfg)
+        if not isinstance(adapter, LeNetAdapter):
+            raise NotImplementedError(
+                "only the LeNet adapter is ported: the LM adapters are "
+                "ROADMAP.md Queue 1 item 15 (LM slice)")
+        self.adapter = adapter
+        self.opt = adam(cfg.lr)
+
+    def init_params(self, generator: torch.Generator):
+        return self.adapter.init(generator)
+
+    def fit_steps(self, params, opt_state, x, y, mask, generator, steps: int):
+        """``steps`` full-batch Adam steps of every device at once on
+        ``x [D, M, ...]``, ``y``/``mask [D, M]``; the step index restarts
+        at 0 each call (the reference's ``fit_steps_raw``)."""
+        for i in range(steps):
+            p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+            loss = self.adapter.loss(p, x, y, mask, generator).sum()
+            grads = torch.autograd.grad(loss, tree_leaves(p))
+            params, opt_state = self.opt.update(
+                tree_unflatten_like(p, grads), opt_state, params, i)
+        return params, opt_state
+
+    @torch.no_grad()
+    def score_logprobs(self, params, x, generator, T: int):
+        """MC-dropout log-probs ``[D, T, W, C]`` of ``x [D, W, ...]``."""
+        return mc_logprobs(self.adapter.stochastic_apply, params, x, T,
+                           generator)
+
+    @torch.no_grad()
+    def eval_logits(self, params, x):
+        """Deterministic logits ``[D, N, C]`` of images shared by all
+        devices ``x [N, ...]`` (or per device ``[D, N, ...]``), in chunks
+        of at most ``EVAL_ROWS`` device-rows."""
+        D = tree_leaves(params)[0].shape[0]
+        N = x.shape[-4]
+        step = max(1, self.EVAL_ROWS // D)
+        outs = [self.adapter.apply(params, x[..., s:s + step, :, :, :])
+                for s in range(0, N, step)]
+        return torch.cat(outs, dim=1)
+
+    def _as_tensor(self, a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def fit(self, params, images, labels, *, steps: int,
+            generator: torch.Generator, opt_state=None):
+        """Train ONE model on ``(images, labels)`` for ``steps`` full-batch
+        Adam steps; returns ``(params, opt_state)``."""
+        counters.count_dispatch()
+        x = self._as_tensor(images, torch.float32)[None]
+        y = self._as_tensor(labels, torch.int64)[None]
+        mask = torch.ones(y.shape, device=self.device)
+        stack = lambda t: tree_map(lambda a: a.unsqueeze(0), t)
+        opt_state = (self.opt.init(stack(params)) if opt_state is None
+                     else stack(opt_state))
+        params, opt_state = self.fit_steps(stack(params), opt_state, x, y,
+                                           mask, generator, steps)
+        unstack = lambda t: tree_map(lambda a: a[0], t)
+        return unstack(params), unstack(opt_state)
+
+    def accuracy(self, params, images, labels) -> float:
+        """Accuracy of ONE model on ``(images, labels)``."""
+        logits = self.eval_logits(tree_map(lambda a: a.unsqueeze(0), params),
+                                  self._as_tensor(images, torch.float32))
+        y = self._as_tensor(labels, torch.int64)
+        return float((logits[0].argmax(-1) == y).float().mean())
+
+
+@dataclass
+class FogNode:
+    """Centralized fog node: seed training + dispatch + aggregation."""
+    trainer: Trainer
+    cfg: FederatedALConfig
+    seed_data: SyntheticDigits
+    device: Optional[str] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.trainer.device != self.device:
+            raise ValueError(f"trainer on {self.trainer.device}, fog node on "
+                             f"{self.device}")
+
+    def initial_model(self, generator: Optional[torch.Generator] = None):
+        """Init from ``generator`` (default: seeded with ``cfg.seed``), then
+        ``initial_train_steps`` on the seed set."""
+        gen = generator if generator is not None else torch.Generator(
+            device=self.device).manual_seed(self.cfg.seed)
+        params = self.trainer.init_params(gen)
+        if len(self.seed_data) > 0:
+            params, _ = self.trainer.fit(
+                params, self.seed_data.images, self.seed_data.labels,
+                steps=self.cfg.initial_train_steps, generator=gen)
+        return params
+
+    def aggregate(self, device_models: List, *, val_set: SyntheticDigits,
+                  counts: Optional[List[int]] = None):
+        """Eq. 1 over a list of uploaded models (the host fog-node path).
+        ``counts`` (labeled counts per upload) are required for
+        ``aggregation="fedavg_n"``."""
+        cfg = self.cfg
+        accs = [self.trainer.accuracy(m, val_set.images, val_set.labels)
+                for m in device_models]
+        if cfg.aggregation == "average":
+            return fedavg(device_models), {"device_accs": accs,
+                                           "strategy": "average"}
+        if cfg.aggregation == "optimal":
+            best_model, best = opt_model(device_models, accs)
+            return best_model, {"device_accs": accs, "strategy": "optimal",
+                                "best": best}
+        if cfg.aggregation == "weighted":
+            return weighted_average(device_models, accs), {
+                "device_accs": accs, "strategy": "weighted"}
+        if cfg.aggregation == "fedavg_n":
+            if counts is None:
+                raise ValueError("aggregation='fedavg_n' needs per-device "
+                                 "labeled counts")
+            return fedavg_n(device_models, counts), {
+                "device_accs": accs, "strategy": "fedavg_n",
+                "counts": [int(c) for c in counts]}
+        raise ValueError(cfg.aggregation)
+
+
+def _select_uploads(num_devices: int, upload_fraction: float, seed: int,
+                    round_idx: int = 0):
+    """Random upload subset for one round, seeded with the sequence
+    ``[seed, round_idx]`` (the reference's draw, number for number)."""
+    uploaded_ids = list(range(num_devices))
+    if upload_fraction < 1.0:
+        k = max(1, int(round(upload_fraction * num_devices)))
+        rs = np.random.default_rng([seed, round_idx])
+        uploaded_ids = sorted(rs.choice(num_devices, size=k,
+                                        replace=False).tolist())
+    return uploaded_ids
+
+
+def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
+                         rounds: int) -> np.ndarray:
+    """``[rounds, D]`` float mask matching ``_select_uploads`` round by
+    round — the host schedule the fused engine takes as ``upload_mask``."""
+    mask = np.zeros((rounds, num_devices), np.float32)
+    for t in range(rounds):
+        mask[t, _select_uploads(num_devices, upload_fraction, seed, t)] = 1.0
+    return mask
+
+
+# options of the reference's round functions that later slices port
+_UNPORTED_OPTIONS = {
+    "comms": "Queue 1 item 9 (comms)",
+    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
+    "async_cfg": "Queue 1 item 12 (async engine)",
+    "faults": "Queue 1 item 11 (faults and checkpoints)",
+    "guards": "Queue 1 item 11 (faults and checkpoints)",
+    "topology": "Queue 1 item 13 (fog topology and sharding)",
+    "mesh": "Queue 1 item 13 (fog topology and sharding)",
+    "stream": "Queue 1 item 14 (streaming and scenarios)",
+    "fleet": "Queue 1 item 14 (streaming and scenarios)",
+}
+_UNPORTED_ENGINES = {
+    "legacy": "Queue 1 item 8b (legacy and classic engines)",
+    "classic": "Queue 1 item 8b (legacy and classic engines)",
+    "async": "Queue 1 item 12 (async engine)",
+}
+
+
+def _check_engine(engine: str, allowed) -> None:
+    if engine in _UNPORTED_ENGINES:
+        raise NotImplementedError(
+            f"engine={engine!r} is not ported yet: ROADMAP.md "
+            f"{_UNPORTED_ENGINES[engine]}")
+    if engine not in allowed:
+        raise ValueError(f"unknown engine {engine!r}: use "
+                         + " | ".join(allowed))
+
+
+def _to_device(tree, device):
+    return tree_map(lambda a: torch.as_tensor(a).to(device), tree)
+
+
+def _round_device(trainer: Optional[Trainer], device):
+    """A given trainer fixes the device; ``device`` may only agree."""
+    if trainer is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != trainer.device:
+        raise ValueError(f"device={device!r} but the trainer is on "
+                         f"{trainer.device}")
+    return trainer.device
+
+
+def run_federated_round(cfg: FederatedALConfig,
+                        device_data: List[SyntheticDigits],
+                        seed_data: SyntheticDigits, test_set: SyntheticDigits,
+                        *, trainer: Optional[Trainer] = None,
+                        initial_params=None, record_curves: bool = True,
+                        upload_fraction: float = 1.0, round_seed: int = 0,
+                        engine: str = "vmap", comms=None, hetero=None,
+                        device=None):
+    """One full paper round: FN init → dispatch → per-device AL (all devices
+    batched) → host-side Eq. 1 over the uploads.
+
+    ``upload_fraction < 1`` uploads a random subset (``round_seed`` = the
+    round index, so successive rounds draw fresh subsets).  Returns
+    ``(aggregated_params, report)`` with ``initial_acc``,
+    ``aggregated_acc``, ``aggregation`` and ``device_histories``."""
+    _check_engine(engine, ("vmap",))
+    reject_unported("run_federated_round", _UNPORTED_OPTIONS, comms=comms,
+                    hetero=hetero)
+    device = _round_device(trainer, device)
+    trainer = trainer or Trainer(cfg, device=device)
+    fog = FogNode(trainer, cfg, seed_data, device=device)
+    params0 = (_to_device(initial_params, device)
+               if initial_params is not None else fog.initial_model())
+
+    eng = EdgeEngine(trainer, cfg, device_data, seed_data,
+                     test_set if record_curves else None, device=device)
+    state, recs = eng.run_round(eng.init_state(params0),
+                                record_curves=record_curves)
+    refined = eng.device_params_list(state)
+    counts = eng.labeled_counts(state)
+    uploaded_ids = _select_uploads(len(device_data), upload_fraction,
+                                   cfg.seed, round_seed)
+    agg_params, agg_info = fog.aggregate(
+        [refined[i] for i in uploaded_ids], val_set=test_set,
+        counts=[counts[i] for i in uploaded_ids])
+    agg_info["uploaded_devices"] = uploaded_ids
+    report = {
+        "initial_acc": trainer.accuracy(params0, test_set.images,
+                                        test_set.labels),
+        "aggregated_acc": trainer.accuracy(agg_params, test_set.images,
+                                           test_set.labels),
+        "aggregation": agg_info,
+        "device_histories": eng.histories(recs),
+    }
+    return agg_params, report
+
+
+def run_federated_rounds(cfg: FederatedALConfig,
+                         device_data: List[SyntheticDigits],
+                         seed_data: SyntheticDigits, test_set: SyntheticDigits,
+                         *, rounds: int = 2, trainer: Optional[Trainer] = None,
+                         upload_fraction: float = 1.0, engine: str = "vmap",
+                         mesh=None, comms=None, hetero=None, async_cfg=None,
+                         faults=None, guards=None, topology=None, stream=None,
+                         fleet=None, device=None):
+    """Iterated rounds: each round re-dispatches the aggregated model;
+    devices keep their pools (labels accumulate across rounds).
+
+    ``engine="vmap"`` aggregates on the host each round; ``engine="fused"``
+    runs the fog node inside ``EdgeEngine.run_rounds_fused`` (Eq. 1
+    through the fused-aggregation kernel).  Returns ``(params, reports)``,
+    one report per round (``round``, ``aggregated_acc``, ``aggregation``)."""
+    _check_engine(engine, ("vmap", "fused"))
+    reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
+                    comms=comms, hetero=hetero, async_cfg=async_cfg,
+                    faults=faults, guards=guards, topology=topology,
+                    stream=stream, fleet=fleet)
+    device = _round_device(trainer, device)
+    trainer = trainer or Trainer(cfg, device=device)
+    fog = FogNode(trainer, cfg, seed_data, device=device)
+    params = fog.initial_model()
+    reports = []
+
+    if engine == "fused":
+        eng = EdgeEngine(trainer, cfg, device_data, seed_data, test_set,
+                         total_acquisitions=cfg.acquisitions * rounds,
+                         device=device)
+        mask = None
+        if upload_fraction < 1.0:
+            mask = upload_mask_schedule(len(device_data), upload_fraction,
+                                        cfg.seed, rounds)
+        _, recs, params = eng.run_rounds_fused(
+            eng.init_state(params), rounds, upload_mask=mask,
+            aggregation=cfg.aggregation)
+        rows = {k: v.cpu().numpy() for k, v in recs.items()}
+        for t in range(rounds):
+            uploaded = np.nonzero(rows["upload_mask"][t])[0]
+            reports.append({
+                "round": t,
+                "aggregated_acc": float(rows["agg_acc"][t]),
+                "aggregation": {
+                    "strategy": cfg.aggregation,
+                    "device_accs": rows["device_accs"][t][uploaded].tolist(),
+                    "weights": rows["weights"][t].tolist(),
+                    "uploaded_devices": uploaded.tolist(),
+                },
+            })
+        return params, reports
+
+    eng = EdgeEngine(trainer, cfg, device_data, seed_data,
+                     total_acquisitions=cfg.acquisitions * rounds,
+                     device=device)
+    state = eng.init_state(params)
+    for t in range(rounds):
+        if t > 0:
+            state = eng.set_params(state, params, round_idx=t)
+        state, _ = eng.run_round(state, record_curves=False)
+        refined = eng.device_params_list(state)
+        counts = eng.labeled_counts(state)
+        uploaded_ids = _select_uploads(len(device_data), upload_fraction,
+                                       cfg.seed, t)
+        params, agg_info = fog.aggregate(
+            [refined[i] for i in uploaded_ids], val_set=test_set,
+            counts=[counts[i] for i in uploaded_ids])
+        agg_info["uploaded_devices"] = uploaded_ids
+        reports.append({
+            "round": t,
+            "aggregated_acc": trainer.accuracy(params, test_set.images,
+                                               test_set.labels),
+            "aggregation": agg_info,
+        })
+    return params, reports
+
+
+# Paper §IV's "massively distributed" regime: many devices, few labels each.
+MASSIVE_DEVICE_COUNTS = (64, 256, 1024)
+MASSIVE_SAMPLES_PER_DEVICE = 40
+
+
+def massive_config(num_devices: int = 256, *, seed: int = 0,
+                   **overrides) -> FederatedALConfig:
+    """Preset for the massively-distributed regime (~40 samples/device:
+    small windows, few acquisitions, size-aware ``fedavg_n`` Eq. 1), the
+    reference's shared small-budget preset."""
+    base = dict(num_devices=num_devices, initial_train=20, acquisitions=2,
+                k_per_acquisition=5, pool_window=32, mc_samples=4,
+                train_steps_per_acq=10, initial_train_steps=20,
+                aggregation="fedavg_n", seed=seed)
+    base.update(overrides)
+    return FederatedALConfig(**base)
+
+
+# scenario → (native engine, preset maker or None = explicit cfg)
+SCENARIOS: Dict[str, tuple] = {
+    "paper": ("vmap", None),
+    "massive": ("fused", massive_config),
+}
+# the reference's other scenarios, and the ROADMAP item that ports each
+_UNPORTED_SCENARIOS = {
+    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
+    "async": "Queue 1 item 12 (async engine)",
+    "churn": "Queue 1 item 11 (faults and checkpoints)",
+    "fog": "Queue 1 item 13 (fog topology and sharding)",
+    "stream": "Queue 1 item 14 (streaming and scenarios)",
+    "lm": "Queue 1 item 15 (LM slice)",
+}
+
+
+def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
+                   n_train: int = 4000, n_test: int = 1000, repeats: int = 1,
+                   scenario: Optional[str] = None, num_devices: int = 256,
+                   rounds: int = 1, engine: Optional[str] = None, mesh=None,
+                   comms=None, hetero=None, async_cfg=None, faults=None,
+                   guards=None, topology=None, stream=None, fleet=None,
+                   device=None):
+    """End-to-end experiment: data from seeds → federated split → rounds.
+
+    ``scenario="paper"`` runs Algorithm 1 with an explicit ``cfg`` on
+    uniform shards (``n_train`` samples, the ``vmap`` engine; one round
+    unless ``rounds > 1``); ``scenario="massive"`` builds
+    ``massive_config(num_devices)`` (an explicit ``cfg`` wins) at ~40
+    samples/device on the fused engine.  ``repeats`` reruns with seeds
+    shifted by 1000.  Multi-round repeats return ``{"rounds": [...]}``;
+    single-round repeats return the round report."""
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
+                    comms=comms, hetero=hetero, async_cfg=async_cfg,
+                    faults=faults, guards=guards, topology=topology,
+                    stream=stream, fleet=fleet)
+    if scenario is not None:
+        if scenario in _UNPORTED_SCENARIOS:
+            raise NotImplementedError(
+                f"scenario={scenario!r} is not ported yet: ROADMAP.md "
+                f"{_UNPORTED_SCENARIOS[scenario]}")
+        if scenario not in SCENARIOS:
+            raise ValueError(f"unknown scenario {scenario!r}: use "
+                             + " | ".join(SCENARIOS))
+        native, preset = SCENARIOS[scenario]
+        if preset is not None:
+            cfg = preset(num_devices) if cfg is None else cfg
+            n_train = MASSIVE_SAMPLES_PER_DEVICE * cfg.num_devices
+        engine = native if engine is None else engine
+    if cfg is None:
+        raise ValueError("pass cfg or a preset scenario (massive)")
+    engine = "vmap" if engine is None else engine
+    device = resolve_device(device)
+
+    reports = []
+    for rep in range(repeats):
+        seed = cfg.seed + 1000 * rep
+        full = make_digit_dataset(n_train, seed=seed)
+        test = make_digit_dataset(n_test, seed=seed + 5)
+        seed_set = make_digit_dataset(cfg.initial_train, seed=seed + 11)
+        shards = federated_split(full, cfg.num_devices, seed=seed)
+        cfg_rep = replace(cfg, seed=seed)
+        if engine == "fused" or rounds > 1:
+            _, round_reports = run_federated_rounds(
+                cfg_rep, shards, seed_set, test, rounds=rounds,
+                engine=engine, device=device)
+            reports.append({"rounds": round_reports})
+        else:
+            _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
+                                                test, engine=engine,
+                                                device=device)
+            reports.append(rep_report)
+    return reports

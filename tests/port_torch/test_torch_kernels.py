@@ -1,0 +1,316 @@
+"""The kernels' plain versions, and the scoring and aggregation modules
+around them, against the JAX package on the CPU.
+
+On the CPU each kernel wrapper runs its plain PyTorch version, so these
+tests hold that version (the function the CUDA kernel is compared with on
+the card) against the reference's Pallas kernel in interpret mode and its
+jnp oracle.  Inputs come from numpy seeds.  Tolerances: 1e-5 absolute in
+float32 for the acquisition scores (the reference's own
+tests/test_kernels.py bar); atol 1e-6 + rtol 1e-5 for Eq. 1 reductions
+(the reference's tests/test_fused_aggregation.py bar), comparing bf16
+payloads after float32 accumulation (``out_dtype=float32``).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import acquisition as jacq  # noqa: E402
+from repro.core import aggregation as jagg  # noqa: E402
+from repro.core import mc_dropout as jmc  # noqa: E402
+from repro.kernels import ops, ref  # noqa: E402
+from repro.kernels.fused_aggregation import fused_aggregate as j_fused  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.core import acquisition as tacq  # noqa: E402
+from repro_torch.core import aggregation as tagg  # noqa: E402
+from repro_torch.core import mc_dropout as tmc  # noqa: E402
+from repro_torch.kernels import acquisition_scores as k1  # noqa: E402
+from repro_torch.kernels import fused_aggregation as k2  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+
+def _logprobs(T, N, C, dtype):
+    """The reference test's inputs: log_softmax of 3·normal logits cast
+    through ``dtype``; numpy seed, so both sides see the same numbers."""
+    logits = 3 * np.random.default_rng(T * N + C).normal(size=(T, N, C))
+    if dtype == "bfloat16":
+        logits = np.asarray(jnp.asarray(logits, jnp.bfloat16), np.float32)
+    return np.asarray(jax.nn.log_softmax(jnp.asarray(logits, jnp.float32),
+                                         axis=-1))
+
+
+# ------------------------------------------------------ K1 acquisition scores
+@pytest.mark.parametrize("T,N,C", [(4, 50, 10), (8, 200, 10), (2, 17, 3),
+                                   (16, 128, 257)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_acquisition_plain_matches_pallas_and_oracle(T, N, C, dtype):
+    lp = _logprobs(T, N, C, dtype)
+    before = k1.launches
+    got = k1.acquisition_scores(torch.from_numpy(lp))   # CPU → plain version
+    assert k1.launches == before
+    kern = ops.acquisition_scores(jnp.asarray(lp), interpret=True)
+    oracle = ref.acquisition_scores_ref(jnp.asarray(lp))
+    for g, k, o in zip(got, kern, oracle):
+        np.testing.assert_allclose(g.numpy(), np.asarray(k), atol=1e-5)
+        np.testing.assert_allclose(g.numpy(), np.asarray(o), atol=1e-5)
+
+
+def test_acquisition_plain_folds_devices_into_rows():
+    lp = np.stack([_logprobs(4, 30, 10, "float32"),
+                   _logprobs(4, 30, 11, "float32")[..., :10]])
+    lp = np.asarray(jax.nn.log_softmax(jnp.asarray(lp), axis=-1))
+    got = k1.acquisition_scores(torch.from_numpy(lp))     # [D, T, N, C]
+    for d in range(2):
+        one = k1.acquisition_scores(torch.from_numpy(lp[d]))
+        for g, o in zip(got, one):
+            np.testing.assert_allclose(g[d].numpy(), o.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["entropy", "bald", "vr", "margin",
+                                  "least_confidence"])
+def test_scores_match_reference(name):
+    lp = _logprobs(6, 40, 10, "float32")
+    got = tacq.acquisition_scores(name, torch.from_numpy(lp))
+    want = jacq.acquisition_scores(name, jnp.asarray(lp))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_predictive_posterior_matches_reference():
+    lp = _logprobs(5, 20, 10, "float32")
+    np.testing.assert_allclose(
+        tmc.predictive_posterior(torch.from_numpy(lp)).numpy(),
+        np.asarray(jmc.predictive_posterior(jnp.asarray(lp))), atol=1e-6)
+
+
+def test_select_topk_matches_reference_including_ties():
+    s = np.array([0.5, 0.9, 0.5, -np.inf, 0.9, 0.1, -np.inf, 0.5],
+                 np.float32)
+    for k in (1, 3, 5, 8):
+        np.testing.assert_array_equal(
+            tacq.select_topk(torch.from_numpy(s), k).numpy(),
+            np.asarray(jacq.select_topk(jnp.asarray(s), k)))
+
+
+def test_select_topk_agrees_on_kernel_scores():
+    lp = _logprobs(8, 100, 10, "float32")
+    ent = k1.acquisition_scores(torch.from_numpy(lp))[0]
+    want = jacq.select_topk(jacq.entropy(jnp.asarray(lp)), 10)
+    assert set(tacq.select_topk(ent, 10).tolist()) == set(
+        np.asarray(want).tolist())
+
+
+def test_batch_bald_lite_matches_reference():
+    lp = _logprobs(6, 30, 4, "float32")
+    np.testing.assert_array_equal(
+        tacq.batch_bald_lite(torch.from_numpy(lp), 3).numpy(),
+        np.asarray(jacq.batch_bald_lite(jnp.asarray(lp), 3)))
+
+
+# ------------------------------------------------------ K2 fused aggregation
+SHAPES = ((3, 4), (7,), (), (2, 1, 2))
+
+
+def _payload(rng, D, payload):
+    if payload == "int8":
+        return {f"l{i}": rng.integers(-127, 128, (D,) + s).astype(np.int8)
+                for i, s in enumerate(SHAPES)}
+    return {f"l{i}": rng.normal(size=(D,) + s).astype(np.float32)
+            for i, s in enumerate(SHAPES)}
+
+
+def _sides(tree_np, payload):
+    """The same payload on both sides (bf16 rounds identically: RNE)."""
+    jdt = jnp.bfloat16 if payload == "bfloat16" else None
+    tdt = torch.bfloat16 if payload == "bfloat16" else None
+    j = {k: jnp.asarray(v, jdt) for k, v in tree_np.items()}
+    t = {k: torch.from_numpy(v) if tdt is None else torch.from_numpy(v).to(tdt)
+         for k, v in tree_np.items()}
+    return j, t
+
+
+def _close(jtree, ttree):
+    for k in jtree:
+        np.testing.assert_allclose(ttree[k].float().numpy(),
+                                   np.asarray(jtree[k], np.float32),
+                                   atol=1e-6, rtol=1e-5, err_msg=k)
+
+
+GRID = [(D, seg, norm, kind, payload)
+        for D in (1, 4, 8, 64) for seg in (False, True)
+        for norm in (True, False) for kind in ("none", "exp", "poly")
+        for payload in (("float32", "bfloat16", "int8") if D == 8
+                        else ("float32",))]
+
+
+@pytest.mark.parametrize("D,segmented,normalize,kind,payload", GRID)
+def test_fused_aggregate_plain_matches_reference(D, segmented, normalize,
+                                                 kind, payload):
+    """flat/segment × normalize × decay kind at D ∈ {1, 4, 8, 64}, and at
+    D = 8 every payload (f32, bf16, int8 + scales), against
+    ``fused_agg_ref``; at D = 8 also against the Pallas kernel in
+    interpret mode."""
+    rng = np.random.default_rng(D * 1000 + 10 * segmented + normalize
+                                + len(kind) + len(payload))
+    tree_j, tree_t = _sides(_payload(rng, D, payload), payload)
+    raw = rng.uniform(0.1, 2.0, D).astype(np.float32)
+    stale = rng.integers(0, 5, D).astype(np.float32)
+    mask = rng.integers(0, 2, D).astype(np.float32)
+    kw = dict(kind=kind, rate=0.6, normalize=normalize)
+    jkw, tkw = dict(kw), dict(kw)
+    if segmented:
+        G = min(D, 3) + 1                  # the last group may be empty
+        ids = rng.integers(0, G - 1 if D > 1 else 1, D).astype(np.int32)
+        jkw.update(segment_ids=jnp.asarray(ids), num_segments=G)
+        tkw.update(segment_ids=torch.from_numpy(ids), num_segments=G)
+    if payload == "int8":
+        sc = {k: rng.uniform(1e-4, 1e-2, D).astype(np.float32)
+              for k in tree_j}
+        jkw["scales"] = {k: jnp.asarray(v) for k, v in sc.items()}
+        tkw["scales"] = {k: torch.from_numpy(v) for k, v in sc.items()}
+    jkw["out_dtype"], tkw["out_dtype"] = jnp.float32, torch.float32
+
+    before = k2.launches
+    got = k2.fused_aggregate(tree_t, torch.from_numpy(raw),
+                             staleness=torch.from_numpy(stale),
+                             mask=torch.from_numpy(mask), **tkw)
+    assert k2.launches == before           # CPU tensors: the plain version
+    _close(ref.fused_agg_ref(tree_j, jnp.asarray(raw),
+                             staleness=jnp.asarray(stale),
+                             mask=jnp.asarray(mask), **jkw), got)
+    if D == 8:
+        _close(j_fused(tree_j, jnp.asarray(raw), staleness=jnp.asarray(stale),
+                       mask=jnp.asarray(mask), interpret=True, **jkw), got)
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+def test_fused_aggregate_plain_all_dead_uniform_guard(segmented):
+    rng = np.random.default_rng(11)
+    D = 8
+    tree_j, tree_t = _sides(_payload(rng, D, "float32"), "float32")
+    raw = rng.uniform(size=D).astype(np.float32)
+    dead = np.zeros(D, np.float32)
+    jkw, tkw = {}, {}
+    if segmented:
+        ids = np.array([0] * 4 + [1] * 4, np.int32)
+        dead[4:] = 1.0                      # one dead group, one live
+        jkw = dict(segment_ids=jnp.asarray(ids), num_segments=2)
+        tkw = dict(segment_ids=torch.from_numpy(ids), num_segments=2)
+    got = k2.fused_aggregate(tree_t, torch.from_numpy(raw),
+                             mask=torch.from_numpy(dead), **tkw)
+    _close(ref.fused_agg_ref(tree_j, jnp.asarray(raw), mask=jnp.asarray(dead),
+                             **jkw), got)
+    assert all(bool(torch.isfinite(v).all()) for v in got.values())
+
+
+def test_fused_aggregate_default_out_dtypes():
+    rng = np.random.default_rng(12)
+    _, t16 = _sides(_payload(rng, 4, "float32"), "bfloat16")
+    w = torch.full((4,), 0.25)
+    out = k2.fused_aggregate(t16, w, normalize=False)
+    assert all(v.dtype == torch.bfloat16 for v in out.values())
+    q = {k: torch.from_numpy(v) for k, v in _payload(rng, 4, "int8").items()}
+    out = k2.fused_aggregate(q, w, scales={k: torch.ones(4) for k in q})
+    assert all(v.dtype == torch.float32 for v in out.values())
+
+
+def test_fused_aggregate_validation():
+    tree = {"x": torch.ones(2, 3)}
+    with pytest.raises(ValueError, match="staleness decay"):
+        k2.fused_aggregate(tree, torch.ones(2), kind="bogus")
+    with pytest.raises(ValueError, match="num_segments"):
+        k2.fused_aggregate(tree, torch.ones(2),
+                           segment_ids=torch.zeros(2, dtype=torch.int32))
+
+
+# ------------------------------------------------------ aggregation module
+@pytest.mark.parametrize("case", ["random", "zero_weights", "no_participants"])
+@pytest.mark.parametrize("segmented", [False, True])
+def test_masked_normalize_matches_reference(case, segmented):
+    rng = np.random.default_rng(13)
+    D = 9
+    w = rng.uniform(0.0, 2.0, D).astype(np.float32)
+    m = rng.integers(0, 2, D).astype(np.float32)
+    if case == "zero_weights":
+        w[:] = 0.0
+    if case == "no_participants":
+        m[:] = 0.0
+    kw = {}
+    if segmented:
+        ids = rng.integers(0, 4, D).astype(np.int32)
+        kw = dict(segment_ids=ids, num_segments=4)
+    got = tagg.masked_normalize(torch.from_numpy(w), torch.from_numpy(m),
+                                **kw)
+    want = jagg.masked_normalize(jnp.asarray(w), jnp.asarray(m), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
+
+
+@pytest.mark.parametrize("kind", ["none", "exp", "poly"])
+def test_staleness_weights_match_reference(kind):
+    rng = np.random.default_rng(14)
+    raw = rng.uniform(0.1, 1.0, 6).astype(np.float32)
+    s = rng.integers(0, 6, 6).astype(np.float32)
+    m = rng.integers(0, 2, 6).astype(np.float32)
+    got = tagg.staleness_weights(torch.from_numpy(raw), torch.from_numpy(s),
+                                 torch.from_numpy(m), kind=kind, rate=0.7)
+    want = jagg.staleness_weights(jnp.asarray(raw), jnp.asarray(s),
+                                  jnp.asarray(m), kind=kind, rate=0.7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
+    assert float(tagg.staleness_decay(torch.zeros(1), kind=kind)[0]) == 1.0
+
+
+@pytest.mark.parametrize("strategy", ["fedavg", "fedavg_n", "weighted",
+                                      "opt"])
+def test_list_forms_match_reference(strategy):
+    rng = np.random.default_rng(15)
+    models = [{"a": rng.normal(size=(3, 2)).astype(np.float32),
+               "b": {"c": rng.normal(size=(4,)).astype(np.float32)}}
+              for _ in range(3)]
+    scores = [0.2, 0.7, 0.7]
+    jm = [jax.tree_util.tree_map(jnp.asarray, m) for m in models]
+    tm = [interop.params_from_jax(m, "cpu") for m in models]
+    if strategy == "fedavg":
+        want, got = jagg.fedavg(jm), tagg.fedavg(tm)
+    elif strategy == "fedavg_n":
+        want, got = jagg.fedavg_n(jm, [3, 5, 0]), tagg.fedavg_n(tm, [3, 5, 0])
+    elif strategy == "weighted":
+        want = jagg.weighted_average(jm, scores)
+        got = tagg.weighted_average(tm, scores)
+    else:
+        (want, bj), (got, bt) = jagg.opt_model(jm, scores), \
+            tagg.opt_model(tm, scores)
+        assert bj == bt == 1
+    back = interop.params_to_jax(got)
+    for a, b in zip(jax.tree_util.tree_leaves(want),
+                    jax.tree_util.tree_leaves(back)):
+        np.testing.assert_allclose(b, np.asarray(a), atol=1e-6)
+
+
+def test_stacked_forms_match_reference():
+    rng = np.random.default_rng(16)
+    st = {"a": rng.normal(size=(5, 3)).astype(np.float32)}
+    w = rng.uniform(size=5).astype(np.float32)
+    m = np.array([1, 0, 1, 1, 0], np.float32)
+    jt = jax.tree_util.tree_map(jnp.asarray, st)
+    tt = interop.params_from_jax(st, "cpu")
+    np.testing.assert_allclose(
+        tagg.weighted_average_stacked(tt, torch.from_numpy(w),
+                                      mask=torch.from_numpy(m))["a"].numpy(),
+        np.asarray(jagg.weighted_average_stacked(jt, jnp.asarray(w),
+                                                 mask=jnp.asarray(m))["a"]),
+        atol=1e-6)
+    np.testing.assert_allclose(
+        tagg.fedavg_stacked(tt)["a"].numpy(),
+        np.asarray(jagg.fedavg_stacked(jt)["a"]), atol=1e-6)
+    (pj, bj), (pt, bt) = (jagg.opt_model_stacked(jt, jnp.asarray(w),
+                                                 mask=jnp.asarray(m)),
+                          tagg.opt_model_stacked(tt, torch.from_numpy(w),
+                                                 mask=torch.from_numpy(m)))
+    assert int(bj) == bt
+    np.testing.assert_array_equal(pt["a"].numpy(), np.asarray(pj["a"]))
+    back = tagg.unstack_models(tagg.stack_models(tagg.unstack_models(tt)))
+    np.testing.assert_array_equal(torch.stack([b["a"] for b in back]).numpy(),
+                                  st["a"])
