@@ -9,21 +9,37 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
    started together) into ``build/repro_torch/``;
-3. the acquisition-score kernel against its plain PyTorch version at the
-   main-path shapes, a ragged N, C = 257 and bfloat16 input (atol 1e-5);
-4. the fused-aggregation kernel against its plain version: D = 256 devices
-   × the 61,706 LeNet parameters, flat preweighted (the engine's mode),
-   plus every other mode (atol 1e-5); kernel, plain and ``torch.mv`` times;
-5. a small RNG-free paper round on the card against the same round on the
-   CPU (the CPU port is held against the JAX package by the tests);
-6. the paper's main path: ``run_experiment(scenario="paper")`` at the
+3. the acquisition-score kernel (K1) against its plain PyTorch version at
+   the main-path shapes, a ragged N, C = 257 and bfloat16 input (atol
+   1e-5), and at the LM fleet's vocabularies C = 32768 and 50288 (atol
+   1e-4: entropies near 10 summed over 5e4 classes in another order);
+4. the fused-aggregation kernel (K2) against its plain version: D = 256
+   devices × the 61,706 LeNet parameters, flat preweighted (the engine's
+   mode), plus every other mode (atol 1e-5), and D = 8 copies of the two
+   LM trees (~129M and ~95M parameters); kernel, plain and ``torch.mv``
+   times;
+5. the flash-attention kernel (K3) against its plain version: every case
+   of the JAX package's tests/test_kernels.py in float32 (atol 2e-5) and
+   bfloat16 (2e-2), and the decoder path's shape; kernel, plain and
+   ``scaled_dot_product_attention`` times;
+6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
+   package's test shapes, the published chunk L = 256 (n 128, p 64) and
+   the SSM path's shape (atol 1e-4); kernel and plain times;
+7. small RNG-free rounds on the card against the same rounds on the CPU:
+   LeNet (paper round), the reduced SSM LM and a small decoder LM (fused
+   rounds); the CPU port is held against the JAX package by the tests;
+8. the paper's main path: ``run_experiment(scenario="paper")`` at the
    default ``FederatedALConfig`` (D=4, R=10, W=200, T=16, n_train 4000);
-7. the massive main path: ``run_experiment(scenario="massive",
+9. the massive main path: ``run_experiment(scenario="massive",
    num_devices=256, rounds=2)``;
-8. both paths again under ``torch.profiler``: wall, device-busy time,
-   idle share and the kernels with the most device time;
-9. a ``{"kernels": [...]}`` line (launches in phases 6 and 7, error, times,
-   bound), and last the ``{"ok": true, "device": ...}`` line.
+10. the LM paths, ``run_experiment(cfg, scenario="lm", rounds=2,
+    n_test=256)`` on 8 devices: A, one Mamba-2 block at mamba2-1.3b widths
+    (K1, K2, K4); B, the 12-layer lm-100m decoder (K1, K2, K3);
+11. the host time of each path's data generation, then all four paths
+    again under ``torch.profiler``: wall, device-busy time, idle share and
+    the kernels with the most device time;
+12. a ``{"kernels": [...]}`` line (launches in phases 8-10, error, times,
+    bound), and last the ``{"ok": true, "device": ...}`` line.
 
 Kernel times are device times from ``torch.profiler`` (CUDA activity):
 the kernel's own time for ``ms``, every kernel of the call for
@@ -32,7 +48,9 @@ events around back-to-back calls) are printed beside them.
 
 Kernel launch counters are set to 0 just before each main path and read
 just after; a main path that does not reach a kernel it should is a
-failure.  Without a CUDA card, or without the repository's ``src/`` beside
+failure.  Bounds use the H100 SXM's published peaks (3.35 TB/s, 67 TFLOP/s
+float32 outside the tensor cores); the card's power limit is printed
+beside them.  Without a CUDA card, or without the repository's ``src/`` beside
 this file, the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -132,7 +150,8 @@ def card_line() -> str:
 
 
 def check_acquisition_kernel(torch, k1):
-    """Phase 3: K1 vs its plain version; returns the kernels-line entry."""
+    """Phase 3: K1 vs its plain version at the LeNet paths' shapes; returns
+    the kernels-line entry."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def logprobs(shape, dtype=torch.float32):
@@ -196,7 +215,8 @@ def lenet_tree(torch, D, gen):
 
 
 def check_aggregation_kernel(torch, k2, tree_leaves):
-    """Phase 4: K2 vs its plain version; returns the kernels-line entry."""
+    """Phase 4: K2 vs its plain version on LeNet trees; returns the
+    kernels-line entry."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     D = 256
     tree = lenet_tree(torch, D, gen)
@@ -259,8 +279,324 @@ def check_aggregation_kernel(torch, k2, tree_leaves):
             "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
 
 
+def check_acquisition_lm_widths(torch, k1):
+    """Phase 3, LM widths: K1 at the two LM vocabularies, [D=8, T=4, W=32,
+    C] (the fused LM rounds' MC scoring).  Returns (worst error, times)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst, times = 0.0, {}
+    for C in (32768, 50288):
+        lp = torch.log_softmax(3 * torch.randn((8, 4, 32, C), generator=gen,
+                                               device="cuda"), dim=-1)
+        got = k1.acquisition_scores(lp)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, k1.acquisition_scores_plain(lp))
+        if not err <= 1e-4:
+            raise AssertionError(f"K1 C={C}: max_abs_err {err} > 1e-4")
+        ms, how, _ = timed(torch, lambda: k1.acquisition_scores(lp),
+                           "acquisition_scores_kernel")
+        plain, _, _ = timed(torch, lambda: k1.acquisition_scores_plain(lp))
+        bound = bound_ms(lp.numel() * 4 + 3 * 8 * 32 * 4, 4 * lp.numel())
+        print(f"  K1 LM [D=8, T=4, W=32, C={C}]: max_abs_err {err:.3e}; "
+              f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, bound "
+              f"{bound:.5f} ms")
+        worst = max(worst, err)
+        times[C] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+    return worst, times
+
+
+def lm_path_configs(torch, fed):
+    """The two LM fleets of phase 10, as a user builds them: 8 devices of
+    ``lm_config``; A, one Mamba-2 block at mamba2-1.3b widths (float32,
+    dropout 0.1 for MC scoring); B, the lm-100m decoder.  Both route their
+    no-grad forwards through the kernels (``impl="pallas"``)."""
+    from dataclasses import replace
+    from repro_torch.core.model_adapter import DecoderLMAdapter, SSMAdapter
+    from repro_torch.models.config import lm_100m, mamba2_1_3b
+    m = replace(mamba2_1_3b(), n_layers=1, dropout_rate=0.1,
+                param_dtype=torch.float32, dtype=torch.float32)
+    return {"A": fed.lm_config(8, adapter=SSMAdapter(m, impl="pallas")),
+            "B": fed.lm_config(8, adapter=DecoderLMAdapter(lm_100m(),
+                                                           impl="pallas"))}
+
+
+def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
+    """Phase 4, LM trees: K2 over D = 8 stacked copies of each LM path's
+    parameter tree.  Returns (worst error, times per path)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst, times = 0.0, {}
+    for name, cfg in configs.items():
+        one = cfg.adapter.init(gen)
+        tree = tree_map(lambda a: torch.randn((8,) + tuple(a.shape),
+                                              generator=gen, device="cuda"),
+                        one)
+        del one
+        N = sum(leaf[0].numel() for leaf in tree_leaves(tree))
+        w = torch.rand(8, generator=gen, device="cuda")
+        w = w / w.sum()
+        got = k2.fused_aggregate(tree, w, normalize=False)
+        torch.cuda.synchronize()
+        err = max_err(torch, tree_leaves(got), tree_leaves(
+            k2.fused_aggregate_plain(tree, w, normalize=False)))
+        del got
+        if not err <= 1e-5:
+            raise AssertionError(f"K2 LM tree {name}: max_abs_err {err}")
+        ms, how, _ = timed(torch, lambda: k2.fused_aggregate(
+            tree, w, normalize=False), "fused_aggregate_kernel")
+        plain, _, _ = timed(torch, lambda: k2.fused_aggregate_plain(
+            tree, w, normalize=False))
+        flat = torch.cat([leaf.reshape(8, -1) for leaf in tree_leaves(tree)],
+                         dim=1)
+        del tree
+        lib, _, _ = timed(torch, lambda: torch.mv(flat.t(), w))
+        del flat
+        bound = bound_ms(8 * N * 4 + N * 4 + 8 * 4, 2 * 8 * N)
+        print(f"  K2 LM tree {name} (D=8 x N={N}): max_abs_err {err:.3e}; "
+              f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, torch.mv "
+              f"{lib:.5f} ms, bound {bound:.5f} ms")
+        worst = max(worst, err)
+        times[name] = {"N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound}
+        torch.cuda.empty_cache()
+    return worst, times
+
+
+# the JAX package's tests/test_kernels.py attention cases:
+# B, Sq, Skv, H, Hkv, d, causal, window, softcap
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None),
+    (1, 128, 128, 8, 1, 64, True, 32, None),
+    (1, 96, 96, 4, 4, 128, True, None, 50.0),
+    (2, 1, 80, 4, 4, 64, True, None, None),
+    (1, 64, 72, 4, 2, 64, False, None, None),
+    (1, 33, 47, 2, 2, 256, True, None, None),
+]
+# path B's MC-scoring call: 8 devices x T=4 x W=32 sequences of 32 tokens
+PATH_B_ATTN = (1024, 32, 32, 10, 5, 64, True, None, None)
+
+
+def causal_pairs(Sq, Skv, causal, window, q_offset):
+    """(query, key) pairs the mask keeps, per (batch, head)."""
+    n = 0
+    for i in range(Sq):
+        qp = q_offset + i
+        lo = 0 if window is None else max(0, qp - window + 1)
+        hi = min(Skv, qp + 1) if causal else Skv
+        n += max(0, hi - lo)
+    return n
+
+
+def check_flash_attention_kernel(torch, k3):
+    """Phase 5: K3 vs its plain version; returns the kernels-line entry."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
+             for c in ATTN_CASES + [PATH_B_ATTN]]
+    for case, dtype in cases:
+        B, Sq, Skv, H, Hkv, d, causal, window, softcap = case
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+                   for s in ((B, Sq, H, d), (B, Skv, Hkv, d),
+                             (B, Skv, Hkv, d)))
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=Skv - Sq if causal else 0)
+        got = k3.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(torch, [got], [k3.flash_attention_plain(q, k, v, **kw)])
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        print(f"  K3 {case} {str(dtype)[6:]}: max_abs_err {err:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"K3 {case} {dtype}: max_abs_err {err} > "
+                                 f"{tol}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+
+    B, Sq, Skv, H, Hkv, d = PATH_B_ATTN[:6]
+    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
+    k, v = (torch.randn((B, Skv, Hkv, d), generator=gen, device="cuda")
+            for _ in range(2))
+    ms, how, host = timed(torch, lambda: k3.flash_attention(q, k, v),
+                          "flash_attention_kernel")
+    plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(q, k, v))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib, _, _ = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                          enable_gqa=True))
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * d * B * H * causal_pairs(Sq, Skv, True, None, 0)
+    bound = bound_ms(nbytes, flops)
+    print(f"  K3 path-B shape q [{B}, {Sq}, {H}, {d}] f32 causal, {how}: "
+          f"kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+          f"scaled_dot_product_attention {lib:.5f} ms, bound {bound:.5f} ms; "
+          f"wrapper per call with host overhead {host:.5f} ms")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:82",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / FP32_FLOPS else "operations",
+            "library_ms": lib}
+
+
+# (Z, L, g, h, n, p): the JAX package's tests/test_kernels.py shapes
+# (G, L, n, p) with one head per group, a multi-head case, the published
+# chunk, and path A's MC-scoring call (8 devices x T=4 x W=32 sequences of
+# 32 tokens, 64 heads of 64, state 128, one group)
+SSD_CASES = [(4, 32, 1, 1, 16, 8), (2, 64, 1, 1, 32, 16),
+             (1, 128, 1, 1, 128, 64), (2, 64, 2, 4, 32, 16),
+             (4, 256, 1, 8, 128, 64)]
+PATH_A_SSD = (1024, 32, 1, 64, 128, 64)
+
+
+def ssd_inputs(torch, gen, Z, L, g, h, n, p, dtype=None):
+    dtype = dtype or torch.float32
+    C, B = (torch.randn((Z, L, g, n), generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    la = -torch.cumsum(torch.nn.functional.softplus(torch.randn(
+        (Z, L, h), generator=gen, device="cuda")), dim=1)
+    xdt = torch.randn((Z, L, h, p), generator=gen, device="cuda").to(dtype)
+    return C, B, la, xdt
+
+
+def check_ssd_kernel(torch, k4):
+    """Phase 6: K4 vs its plain version; returns the kernels-line entry."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    cases = [(c, torch.float32) for c in SSD_CASES + [PATH_A_SSD]]
+    cases.append((SSD_CASES[-1], torch.bfloat16))
+    for case, dtype in cases:
+        args = ssd_inputs(torch, gen, *case, dtype=dtype)
+        got = k4.ssd_intra_chunk(*args)
+        torch.cuda.synchronize()
+        err = max_err(torch, got, k4.ssd_intra_chunk_plain(*args))
+        print(f"  K4 (Z, L, g, h, n, p) = {case} {str(dtype)[6:]}: "
+              f"max_abs_err {err:.3e}")
+        if not err <= 1e-4:
+            raise AssertionError(f"K4 {case}: max_abs_err {err} > 1e-4")
+        worst = max(worst, err)
+        del got, args
+
+    Z, L, g, h, n, p = PATH_A_SSD
+    args = ssd_inputs(torch, gen, *PATH_A_SSD)
+    ms, how, host = timed(torch, lambda: k4.ssd_intra_chunk(*args),
+                          "ssd_intra_chunk_kernel")
+    plain, _, _ = timed(torch, lambda: k4.ssd_intra_chunk_plain(*args))
+    pairs = L * (L + 1) // 2
+    nbytes = 4 * (2 * Z * L * g * n + Z * L * h + 2 * Z * L * h * p
+                  + Z * h * p * n)
+    flops = 2 * Z * (g * pairs * n + h * (pairs * p + L * p * n))
+    bound = bound_ms(nbytes, flops)
+    print(f"  K4 path-A shape (Z, L, g, h, n, p) = {PATH_A_SSD} f32, {how}: "
+          f"kernel {ms:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms "
+          f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP); wrapper per "
+          f"call with host overhead {host:.5f} ms")
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:50",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
+            >= flops / FP32_FLOPS else "operations",
+            "library_ms": None}
+
+
+def check_small_lm_rounds_against_cpu(torch, fed, interop):
+    """Phase 7, LM: the same RNG-free fused LM rounds (dropout 0, window ≥
+    shard) on the card and on the CPU, for the reduced SSM and a two-layer
+    decoder cut from lm-100m: equal labeled sets, and params within 1e-4
+    or twice the float32 rounding floor of the run, whichever is larger.
+    The floor is the distance between the CPU run and a CPU run with
+    float64 weights: Adam's normalized steps turn rounding noise in
+    near-zero gradient components into steps of up to lr, so in the
+    decoder float32 rounding alone moves the weights by ~6e-4 here."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.core.model_adapter import DecoderLMAdapter, SSMAdapter
+    from repro_torch.data.lm import lm_federated_split, make_lm_dataset
+    from repro_torch.models.config import lm_100m
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dec = replace(lm_100m().reduced(n_layers=2, vocab_size=256,
+                                    max_seq_len=32), dropout_rate=0.0)
+    adapters = {"ssm": SSMAdapter(fed.lm_model_config(dropout_rate=0.0),
+                                  impl="pallas"),
+                "decoder": DecoderLMAdapter(dec, impl="pallas")}
+    shards = lm_federated_split(3, 20, seq_len=32, vocab=256, seed=0)
+    test = make_lm_dataset(64, seq_len=32, vocab=256, seed=5, stream_seed=0)
+    seed_set = make_lm_dataset(6, seq_len=32, vocab=256, seed=11,
+                               stream_seed=0)
+    for name, adapter in adapters.items():
+        cfg = fed.lm_config(3, adapter=adapter, initial_train=6,
+                            acquisitions=2, k_per_acquisition=3,
+                            pool_window=64, mc_samples=2,
+                            train_steps_per_acq=3)
+        p0 = interop.params_to_jax(adapter.init(
+            torch.Generator().manual_seed(0)))
+        wide = replace(adapter, config=replace(
+            adapter.config, param_dtype=torch.float64, dtype=torch.float64))
+        out = {}
+        for run, dev, ad in (("cuda", "cuda", adapter), ("cpu", "cpu", adapter),
+                             ("cpu64", "cpu", wide)):
+            c = replace(cfg, adapter=ad)
+            eng = EdgeEngine(fed.Trainer(c, device=dev), c, shards,
+                             seed_set, test, total_acquisitions=4, device=dev)
+            start = interop.params_from_jax(p0, dev)
+            if run == "cpu64":
+                start = tree_map(lambda a: a.double(), start)
+            st, recs, fin = eng.run_rounds_fused(eng.init_state(start), 2)
+            out[run] = (interop.vpool_to_jax(st.pool)["labeled_mask"],
+                        [np.asarray(a, np.float64) for a in tree_leaves(
+                            interop.params_to_jax(fin))],
+                        recs["agg_acc"].tolist())
+        (mg, pg, ag), (mc, pc, ac) = out["cuda"], out["cpu"]
+        if not np.array_equal(mg, mc):
+            raise AssertionError(f"LM {name}: card and CPU labeled different "
+                                 "samples")
+        dist = lambda x, y: max(float(np.abs(a - b).max())
+                                for a, b in zip(x, y))
+        err, floor = dist(pg, pc), dist(pc, out["cpu64"][1])
+        tol = max(1e-4, 2 * floor)
+        print(f"  card vs CPU small LM rounds ({name}): labeled sets equal, "
+              f"params max_abs_err {err:.3e} (float32 rounding floor "
+              f"{floor:.3e}, tolerance {tol:.3e}), agg_acc {ag} vs {ac}")
+        if not err <= tol:
+            raise AssertionError(f"LM {name}: card vs CPU params differ by "
+                                 f"{err} > {tol}")
+
+
+def run_lm_path(torch, fed, name, cfg, kernels):
+    """Phase 10: one LM path through ``run_experiment``; returns (wall s,
+    launches)."""
+    from repro_torch.tree import tree_leaves
+    n_params = sum(a.numel() for a in tree_leaves(cfg.adapter.init(
+        torch.Generator(device="cuda").manual_seed(0))))
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds = fed.run_experiment(cfg, scenario="lm", rounds=2,
+                                n_test=256)[0]["rounds"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in kernels.items()}
+    accs = [r["aggregated_acc"] for r in rounds]
+    print(f"  path {name}: {n_params} params per device x "
+          f"{cfg.num_devices} devices; "
+          f"aggregated_acc per round {accs}; wall {wall:.3f} s; launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r in rounds:
+        wsum = sum(r["aggregation"]["weights"])
+        acc = r["aggregated_acc"]
+        if not (abs(wsum - 1.0) < 1e-4 and acc == acc and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"path {name} round {r['round']}: weights "
+                                 f"sum {wsum}, acc {acc}")
+    return wall, launches
+
+
 def check_small_round_against_cpu(torch, fed, interop, lenet):
-    """Phase 5: the same RNG-free round (dropout 0, window ≥ shard) on the
+    """Phase 7, LeNet: the same RNG-free round (dropout 0, window ≥ shard) on the
     card and on the CPU: equal labeled sets, params within 1e-4."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import federated_split
@@ -316,10 +652,14 @@ def main() -> int:
     from repro_torch.core import federated as fed
     from repro_torch.kernels import _build
     from repro_torch.kernels import acquisition_scores as k1
+    from repro_torch.kernels import flash_attention as k3
     from repro_torch.kernels import fused_aggregation as k2
+    from repro_torch.kernels import ssd_scan as k4
     from repro_torch.nn import lenet
-    from repro_torch.tree import tree_leaves
+    from repro_torch.tree import tree_leaves, tree_map
 
+    kernels = {"acquisition_scores": k1, "fused_aggregation": k2,
+               "flash_attention": k3, "ssd_intra_chunk": k4}
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
@@ -336,22 +676,40 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print("phase 3: acquisition-score kernel vs plain")
+    configs = lm_path_configs(torch, fed)
+    print("phase 3: acquisition-score kernel (K1) vs plain")
     k1_entry = check_acquisition_kernel(torch, k1)
-    print("phase 4: fused-aggregation kernel vs plain")
+    err, k1_lm = check_acquisition_lm_widths(torch, k1)
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err)
+    print("phase 4: fused-aggregation kernel (K2) vs plain")
     k2_entry = check_aggregation_kernel(torch, k2, tree_leaves)
-    print("phase 5: small round, card vs CPU")
+    err, k2_lm = check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map,
+                                            configs)
+    k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], err)
+    print("phase 5: flash-attention kernel (K3) vs plain")
+    k3_entry = check_flash_attention_kernel(torch, k3)
+    print("phase 6: SSD intra-chunk kernel (K4) vs plain")
+    k4_entry = check_ssd_kernel(torch, k4)
+    torch.cuda.empty_cache()
+    print("phase 7: small rounds, card vs CPU")
     check_small_round_against_cpu(torch, fed, interop, lenet)
+    check_small_lm_rounds_against_cpu(torch, fed, interop)
 
-    print("phase 6: paper main path (run_experiment scenario='paper')")
-    k1.launches = k2.launches = 0
-    torch.cuda.synchronize()
+    def reset():
+        for mod in kernels.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+
+    def read():
+        return {k: mod.launches for k, mod in kernels.items()}
+
+    print("phase 8: paper main path (run_experiment scenario='paper')")
+    reset()
     t0 = time.perf_counter()
     rep = fed.run_experiment(fed.FederatedALConfig(), scenario="paper")[0]
     torch.cuda.synchronize()
     paper_s = time.perf_counter() - t0
-    paper_launches = {"acquisition_scores": k1.launches,
-                      "fused_aggregation": k2.launches}
+    paper_launches = read()
     print(f"  initial_acc {rep['initial_acc']} aggregated_acc "
           f"{rep['aggregated_acc']} wall {paper_s:.3f} s launches "
           f"{paper_launches}")
@@ -365,16 +723,14 @@ def main() -> int:
     if n_hist != [10] * 4:
         raise AssertionError(f"device histories {n_hist} != 4 x 10")
 
-    print("phase 7: massive main path (scenario='massive', D=256, 2 rounds)")
-    k1.launches = k2.launches = 0
-    torch.cuda.synchronize()
+    print("phase 9: massive main path (scenario='massive', D=256, 2 rounds)")
+    reset()
     t0 = time.perf_counter()
     rounds = fed.run_experiment(scenario="massive", num_devices=256,
                                 rounds=2)[0]["rounds"]
     torch.cuda.synchronize()
     massive_s = time.perf_counter() - t0
-    massive_launches = {"acquisition_scores": k1.launches,
-                        "fused_aggregation": k2.launches}
+    massive_launches = read()
     accs = [r["aggregated_acc"] for r in rounds]
     print(f"  aggregated_acc per round {accs} wall {massive_s:.3f} s "
           f"launches {massive_launches}")
@@ -390,32 +746,60 @@ def main() -> int:
             raise AssertionError(f"round {r['round']}: weights sum {wsum}, "
                                  f"acc {r['aggregated_acc']}")
 
-    print("phase 8: where the time goes (both paths again, profiled)")
+    print("phase 10: LM paths (scenario='lm', 8 devices, 2 rounds, "
+          "n_test 256)")
+    lm_walls, lm_launches = {}, {}
+    for name, own in (("A", "ssd_intra_chunk"), ("B", "flash_attention")):
+        reset()
+        lm_walls[name], lm_launches[name] = run_lm_path(
+            torch, fed, name, configs[name], kernels)
+        for k in ("acquisition_scores", "fused_aggregation", own):
+            if lm_launches[name][k] < 1:
+                raise AssertionError(f"path {name} launched no {k} kernel")
+        torch.cuda.empty_cache()
+
+    print("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
     t0 = time.perf_counter()
     for n, seed in ((4000, 0), (1000, 5), (20, 11)):
         make_digit_dataset(n, seed=seed)
     print(f"  paper data generation (host numpy): "
           f"{time.perf_counter() - t0:.3f} s")
-    for name, fn in (
-            ("paper", lambda: fed.run_experiment(fed.FederatedALConfig(),
-                                                 scenario="paper")),
-            ("massive", lambda: fed.run_experiment(
-                scenario="massive", num_devices=256, rounds=2))):
+    from repro_torch.data.lm import lm_federated_split, make_lm_dataset
+    for name in ("A", "B"):
+        vocab = configs[name].adapter.config.vocab_size
+        t0 = time.perf_counter()
+        make_lm_dataset(256, seq_len=32, vocab=vocab, seed=5, stream_seed=0)
+        make_lm_dataset(20, seq_len=32, vocab=vocab, seed=11, stream_seed=0)
+        lm_federated_split(8, 40, seq_len=32, vocab=vocab, seed=0)
+        print(f"  path {name} data generation (host numpy, vocab {vocab}): "
+              f"{time.perf_counter() - t0:.3f} s")
+    profiled = (
+        ("paper", lambda: fed.run_experiment(fed.FederatedALConfig(),
+                                             scenario="paper")),
+        ("massive", lambda: fed.run_experiment(
+            scenario="massive", num_devices=256, rounds=2)),
+        ("A", lambda: fed.run_experiment(configs["A"], scenario="lm",
+                                         rounds=2, n_test=256)),
+        ("B", lambda: fed.run_experiment(configs["B"], scenario="lm",
+                                         rounds=2, n_test=256)))
+    for name, fn in profiled:
         wall, busy, top = profile_path(torch, fn)
         print(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}")
+        torch.cuda.empty_cache()
 
-    k1_entry["launches"] = (paper_launches["acquisition_scores"]
-                            + massive_launches["acquisition_scores"])
-    k2_entry["launches"] = (paper_launches["fused_aggregation"]
-                            + massive_launches["fused_aggregation"])
+    all_launches = [paper_launches, massive_launches, *lm_launches.values()]
+    for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
+        entry["launches"] = sum(run[entry["name"]] for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
-                      "paper_launches": paper_launches,
+                      "lm_s": lm_walls, "paper_launches": paper_launches,
                       "massive_launches": massive_launches,
+                      "lm_launches": lm_launches,
+                      "k1_lm_widths": k1_lm, "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")
-    print(json.dumps({"kernels": [k1_entry, k2_entry]}))
+    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k4_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,9 +14,16 @@ acquisition is one batched pass over all devices:
 ``run_rounds_fused`` adds the fog node (the reference's in-compile fog):
 per round, the per-device validation accuracy, the Eq. 1 weights over the
 participants, the stacked reduce through the fused-aggregation kernel
-(``aggregation.aggregate_stacked``), and re-dispatch.  This slice ports its
-base path; the comms / hetero / faults / guards / churn / topology / fleet
-options raise ``NotImplementedError`` naming their ROADMAP item.
+(``aggregation.aggregate_stacked``), and re-dispatch.  Leaves the adapter
+keeps per device (``model_adapter.excluded_paths``: the SSM adapter's
+recurrent state) stay out of Eq. 1: they carry no mass into the reduce,
+each device keeps its own value at re-dispatch, and the fog model reports
+device 0's.  This slice ports the base path; the comms / hetero / faults /
+guards / churn / topology / fleet options raise ``NotImplementedError``
+naming their ROADMAP item.
+
+Samples keep their dtype and rank end to end: float32 images ``[28, 28,
+1]`` for LeNet, int32 token sequences ``[S]`` for the LM adapters.
 
 Randomness comes from one ``torch.Generator`` per round on the engine's
 device (``EngineState.rng``), seeded from ``cfg.seed`` and the absolute
@@ -34,9 +41,10 @@ import torch
 from repro_torch.core import acquisition as acq
 from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import counters, vpool
+from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
 from repro_torch.kernels.acquisition_scores import acquisition_scores
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_items, tree_map, tree_map_with_path
 
 _AGGREGATIONS = ("average", "weighted", "optimal", "fedavg_n")
 
@@ -77,7 +85,8 @@ def stack_device_data(device_data: Sequence, device):
     """Pad ragged device shards to a common length and stack.
 
     Returns ``(images [D, n_pad, ...], labels [D, n_pad] int64, valid [D,
-    n_pad] bool)`` on ``device``.  Padding slots are invalid and are born
+    n_pad] bool)`` on ``device``; the images keep their dtype (float32
+    pixels, int32 tokens).  Padding slots are invalid and are born
     "labeled" in the pool, so the window draw never selects them."""
     D = len(device_data)
     n_pad = max(len(d) for d in device_data)
@@ -99,6 +108,17 @@ def broadcast_params(params0, D: int):
     """One model → the same model on every one of D devices ``[D, ...]``."""
     return tree_map(lambda a: a.unsqueeze(0).expand(D, *a.shape).clone(),
                     params0)
+
+
+def _aggregate_shared(params, w, excl):
+    """Eq. 1 over the leaves outside ``excl`` (through the fused-aggregation
+    kernel); the excluded leaves, which carry no Eq. 1 mass, take device
+    0's row."""
+    flat = {path: leaf for path, leaf in tree_items(params)
+            if path not in excl}
+    reduced = agg_mod.aggregate_stacked(flat, w) if flat else {}
+    return tree_map_with_path(
+        lambda path, leaf: leaf[0] if path in excl else reduced[path], params)
 
 
 class EdgeEngine:
@@ -267,7 +287,8 @@ class EdgeEngine:
         Returns ``(state, recs, aggregated_params)``: ``recs`` holds
         ``[rounds, ...]`` rows ``weights``, ``upload_mask``, ``n_labeled``
         (and ``device_accs`` / ``agg_acc`` with a validation set);
-        ``aggregated_params`` is the last round's fog model."""
+        ``aggregated_params`` is the last round's fog model (its excluded
+        leaves are device 0's)."""
         reject_unported("run_rounds_fused", _UNPORTED_FUSED, comms=comms,
                         hetero=hetero, faults=faults, guards=guards,
                         live_mask=live_mask, topology=topology, fleet=fleet)
@@ -301,6 +322,7 @@ class EdgeEngine:
         trainer = self.trainer
         params, opt_state, pool, gen = (state.params, state.opt_state,
                                         state.pool, state.rng)
+        excl = frozenset(excluded_paths(trainer.adapter, params))
         recs: Dict[str, list] = {}
         agg = None
         for t in range(rounds):
@@ -327,7 +349,7 @@ class EdgeEngine:
                     torch.argmax(masked), D).float()
             w = agg_mod.masked_normalize(raw, mask)
             with torch.no_grad():
-                agg = agg_mod.aggregate_stacked(params, w)
+                agg = _aggregate_shared(params, w, excl)
             row = {"weights": w, "upload_mask": mask, "n_labeled": counts}
             if has_val:
                 row["device_accs"] = accs
@@ -336,8 +358,11 @@ class EdgeEngine:
                     self.test_images, self.test_labels)[0]
             for k, v in row.items():
                 recs.setdefault(k, []).append(v)
-            # re-dispatch: fresh optimizer, pools persist
-            params = broadcast_params(agg, D)
+            # re-dispatch: fresh optimizer, pools persist; excluded leaves
+            # keep each device's own trained value
+            params = tree_map_with_path(
+                lambda path, trained, fog: trained if path in excl else fog,
+                params, broadcast_params(agg, D))
             opt_state = trainer.opt.init(params)
         out = {k: torch.stack(v) for k, v in recs.items()}
         return EngineState(params, opt_state, pool, gen), out, agg

@@ -8,10 +8,12 @@ Round structure (paper §III-B):
      acquisition function, k new labels per acquisition, windowed pool).
   4. Devices upload parameters; FN aggregates (Eq. 1).
 
-This slice ports the ``vmap`` engine (``EdgeEngine.run_round``, host-side
+The port has the ``vmap`` engine (``EdgeEngine.run_round``, host-side
 Eq. 1) and the ``fused`` engine (``EdgeEngine.run_rounds_fused``, Eq. 1
 through the fused-aggregation kernel), and ``run_experiment`` for the
-``paper`` and ``massive`` scenarios.  Everything runs on ``device``
+``paper``, ``massive`` and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet
+for an LM adapter (``core.model_adapter``) on token shards
+(``data.lm``).  Everything runs on ``device``
 (default ``"cuda"``; see ``repro_torch.device``).  Reports carry the
 reference's keys except ``"comms"``, which arrives with the comms slice.
 """
@@ -28,9 +30,11 @@ from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
 from repro_torch.core.engine import EdgeEngine, reject_unported
 from repro_torch.core.mc_dropout import mc_logprobs
-from repro_torch.core.model_adapter import LeNetAdapter, ModelAdapter
+from repro_torch.core.model_adapter import (LeNetAdapter, ModelAdapter,
+                                           SSMAdapter)
 from repro_torch.data.digits import SyntheticDigits
 from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig
 from repro_torch.nn.lenet import LeNetConfig
 from repro_torch.optim import adam
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -70,14 +74,14 @@ class FederatedALConfig:
 class Trainer:
     """Train / score / eval bundle for one model family on one device.
 
-    Every method takes STACKED params ``[D, ...]`` except ``fit`` /
-    ``accuracy`` / ``init_params``, which work on one model.  Training
-    differentiates the sum of the per-device masked losses with torch
-    autograd, which gives each device its own gradient."""
-
-    # rows per batched no-grad forward (devices × images): bounds the
-    # memory of the im2col patches of a D=256 fleet on a validation set
-    EVAL_ROWS = 16384
+    The model is a ``core.model_adapter.ModelAdapter`` (default: the
+    paper's LeNet; ``cfg.adapter`` or ``adapter=`` for an LM).  Every
+    method takes STACKED params ``[D, ...]`` except ``fit`` / ``accuracy``
+    / ``init_params``, which work on one model.  Training differentiates
+    the sum of the per-device masked losses with torch autograd, which
+    gives each device its own gradient.  Samples keep their dtype (float32
+    images, int32 tokens) and may have any rank (``adapter.sample_ndim``).
+    """
 
     def __init__(self, cfg: FederatedALConfig,
                  model_cfg: LeNetConfig = LeNetConfig(),
@@ -88,10 +92,6 @@ class Trainer:
             adapter = cfg.adapter
         if adapter is None:
             adapter = LeNetAdapter(model_cfg)
-        if not isinstance(adapter, LeNetAdapter):
-            raise NotImplementedError(
-                "only the LeNet adapter is ported: the LM adapters are "
-                "ROADMAP.md Queue 1 item 15 (LM slice)")
         self.adapter = adapter
         self.opt = adam(cfg.lr)
 
@@ -118,17 +118,20 @@ class Trainer:
 
     @torch.no_grad()
     def eval_logits(self, params, x):
-        """Deterministic logits ``[D, N, C]`` of images shared by all
-        devices ``x [N, ...]`` (or per device ``[D, N, ...]``), in chunks
-        of at most ``EVAL_ROWS`` device-rows."""
+        """Deterministic logits ``[D, N, C]`` of samples shared by all
+        devices ``x [N, *sample]`` (or per device ``[D, N, *sample]``), in
+        chunks of at most ``adapter.eval_rows`` device-rows."""
         D = tree_leaves(params)[0].shape[0]
-        N = x.shape[-4]
-        step = max(1, self.EVAL_ROWS // D)
-        outs = [self.adapter.apply(params, x[..., s:s + step, :, :, :])
+        axis = x.dim() - self.adapter.sample_ndim - 1      # the N axis
+        N = x.shape[axis]
+        step = max(1, self.adapter.eval_rows // D)
+        outs = [self.adapter.apply(params, x.narrow(axis, s, min(step, N - s)))
                 for s in range(0, N, step)]
         return torch.cat(outs, dim=1)
 
-    def _as_tensor(self, a, dtype):
+    def _as_tensor(self, a, dtype=None):
+        """numpy-like ``a`` on the trainer's device; ``dtype`` None keeps
+        the array's own (float32 images, int32 tokens)."""
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def fit(self, params, images, labels, *, steps: int,
@@ -136,7 +139,7 @@ class Trainer:
         """Train ONE model on ``(images, labels)`` for ``steps`` full-batch
         Adam steps; returns ``(params, opt_state)``."""
         counters.count_dispatch()
-        x = self._as_tensor(images, torch.float32)[None]
+        x = self._as_tensor(images)[None]
         y = self._as_tensor(labels, torch.int64)[None]
         mask = torch.ones(y.shape, device=self.device)
         stack = lambda t: tree_map(lambda a: a.unsqueeze(0), t)
@@ -150,7 +153,7 @@ class Trainer:
     def accuracy(self, params, images, labels) -> float:
         """Accuracy of ONE model on ``(images, labels)``."""
         logits = self.eval_logits(tree_map(lambda a: a.unsqueeze(0), params),
-                                  self._as_tensor(images, torch.float32))
+                                  self._as_tensor(images))
         y = self._as_tensor(labels, torch.int64)
         return float((logits[0].argmax(-1) == y).float().mean())
 
@@ -417,10 +420,37 @@ def massive_config(num_devices: int = 256, *, seed: int = 0,
     return FederatedALConfig(**base)
 
 
-# scenario → (native engine, preset maker or None = explicit cfg)
+# LM scenario defaults (scenario="lm"): token geometry of the synthetic
+# Markov source (data.lm) and of the reduced SSM adapter the preset builds.
+LM_VOCAB = 256
+LM_SEQ_LEN = 32
+
+
+def lm_model_config(*, vocab: int = LM_VOCAB, seq_len: int = LM_SEQ_LEN,
+                    dropout_rate: float = 0.1) -> ModelConfig:
+    """Reduced single-block SSM ``ModelConfig`` for the LM scenario (d_model
+    64, one Mamba-2 block) with MC-dropout on: ``dropout_rate > 0`` gives
+    the Eq. 13 posterior samples their variance."""
+    base = ModelConfig(family="ssm", attn_pattern=("M",)).reduced(
+        n_layers=1, d_model=64, vocab_size=vocab, max_seq_len=seq_len)
+    return replace(base, dropout_rate=dropout_rate)
+
+
+def lm_config(num_devices: int = 8, *, seed: int = 0,
+              **overrides) -> FederatedALConfig:
+    """Preset for the LM regime: the massive preset's small budget with an
+    ``SSMAdapter`` in place of LeNet — token shards from
+    ``data.lm.lm_federated_split``, next-token "labels", and a carried
+    per-device recurrent state the engine keeps out of Eq. 1."""
+    overrides.setdefault("adapter", SSMAdapter(lm_model_config()))
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
+# scenario → (native engine, preset maker or None = explicit cfg, split)
 SCENARIOS: Dict[str, tuple] = {
-    "paper": ("vmap", None),
-    "massive": ("fused", massive_config),
+    "paper": ("vmap", None, "digits"),
+    "massive": ("fused", massive_config, "digits"),
+    "lm": ("fused", lm_config, "lm"),
 }
 # the reference's other scenarios, and the ROADMAP item that ports each
 _UNPORTED_SCENARIOS = {
@@ -429,7 +459,6 @@ _UNPORTED_SCENARIOS = {
     "churn": "Queue 1 item 11 (faults and checkpoints)",
     "fog": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
-    "lm": "Queue 1 item 15 (LM slice)",
 }
 
 
@@ -446,11 +475,14 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     uniform shards (``n_train`` samples, the ``vmap`` engine; one round
     unless ``rounds > 1``); ``scenario="massive"`` builds
     ``massive_config(num_devices)`` (an explicit ``cfg`` wins) at ~40
-    samples/device on the fused engine.  ``repeats`` reruns with seeds
-    shifted by 1000.  Multi-round repeats return ``{"rounds": [...]}``;
-    single-round repeats return the round report."""
+    samples/device on the fused engine; ``scenario="lm"`` does the same
+    with ``lm_config`` on token shards of one Markov chain, sized by the
+    adapter's vocabulary and at most ``LM_SEQ_LEN`` tokens.  ``repeats``
+    reruns with seeds shifted by 1000.  Multi-round repeats return
+    ``{"rounds": [...]}``; single-round repeats return the round report."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import federated_split
+    from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
     reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
                     comms=comms, hetero=hetero, async_cfg=async_cfg,
@@ -464,23 +496,40 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         if scenario not in SCENARIOS:
             raise ValueError(f"unknown scenario {scenario!r}: use "
                              + " | ".join(SCENARIOS))
-        native, preset = SCENARIOS[scenario]
+        native, preset, split = SCENARIOS[scenario]
         if preset is not None:
             cfg = preset(num_devices) if cfg is None else cfg
             n_train = MASSIVE_SAMPLES_PER_DEVICE * cfg.num_devices
         engine = native if engine is None else engine
+    else:
+        split = "digits"
     if cfg is None:
-        raise ValueError("pass cfg or a preset scenario (massive)")
+        raise ValueError("pass cfg or a preset scenario (massive | lm)")
     engine = "vmap" if engine is None else engine
     device = resolve_device(device)
 
     reports = []
     for rep in range(repeats):
         seed = cfg.seed + 1000 * rep
-        full = make_digit_dataset(n_train, seed=seed)
-        test = make_digit_dataset(n_test, seed=seed + 5)
-        seed_set = make_digit_dataset(cfg.initial_train, seed=seed + 11)
-        shards = federated_split(full, cfg.num_devices, seed=seed)
+        if split == "lm":
+            # every split comes from ONE Markov chain (stream_seed=seed)
+            acfg = getattr(cfg.adapter, "config", None)
+            vocab = getattr(acfg, "vocab_size", LM_VOCAB)
+            seq_len = min(LM_SEQ_LEN, getattr(acfg, "max_seq_len",
+                                              LM_SEQ_LEN))
+            test = make_lm_dataset(n_test, seq_len=seq_len, vocab=vocab,
+                                   seed=seed + 5, stream_seed=seed)
+            seed_set = make_lm_dataset(cfg.initial_train, seq_len=seq_len,
+                                       vocab=vocab, seed=seed + 11,
+                                       stream_seed=seed)
+            shards = lm_federated_split(
+                cfg.num_devices, max(1, n_train // cfg.num_devices),
+                seq_len=seq_len, vocab=vocab, seed=seed)
+        else:
+            full = make_digit_dataset(n_train, seed=seed)
+            test = make_digit_dataset(n_test, seed=seed + 5)
+            seed_set = make_digit_dataset(cfg.initial_train, seed=seed + 11)
+            shards = federated_split(full, cfg.num_devices, seed=seed)
         cfg_rep = replace(cfg, seed=seed)
         if engine == "fused" or rounds > 1:
             _, round_reports = run_federated_rounds(

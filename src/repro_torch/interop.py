@@ -1,14 +1,17 @@
 """Weights carried across between the JAX package and the port.
 
 Both sides keep the same layouts (NHWC images, HWIO conv kernels, ``[in,
-out]`` dense kernels) and the same key names, so carrying a tree across is
-a leafwise copy: ``params_from_jax`` takes the JAX side's tree with every
-leaf turned into a numpy array (``jax.tree_util.tree_map(np.asarray,
-tree)`` on that side) and returns torch tensors on ``device``;
-``params_to_jax`` returns numpy leaves that the JAX side wraps with
-``jnp.asarray``.  Single and stacked ``[D, ...]`` params and the Adam
-state ``{"m": tree, "v": tree}`` are plain nested dicts; ``VPool`` is a
-named tuple on both sides and converts field by field.  This module
+out]`` dense kernels, ``[B, S, H, d]`` attention heads) and the same key
+names, so carrying a tree across is a leafwise copy: ``params_from_jax``
+takes the JAX side's tree with every leaf turned into a numpy array
+(``jax.tree_util.tree_map(np.asarray, tree)`` on that side) and returns
+torch tensors on ``device``; ``params_to_jax`` returns numpy leaves that
+the JAX side wraps with ``jnp.asarray``.  Single and stacked ``[D, ...]``
+params and the Adam state ``{"m": tree, "v": tree}`` are nested dicts,
+lists and tuples (the decoder's ``head_layers`` / ``units`` /
+``tail_layers`` are lists; the SSM adapter's ``recurrent/state`` is a leaf
+like any other); ``VPool`` is a named tuple on both sides and converts
+field by field.  This module
 imports no JAX: the numpy arrays are the interface.
 """
 from __future__ import annotations
@@ -36,13 +39,13 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device) -> dict:
-    """Nested dict of numpy leaves (params, stacked params, Adam state) →
-    the same nested dict of torch tensors on ``device``."""
-    return tree_map(lambda a: _leaf_to_torch(a, device), dict(tree))
+    """Tree of numpy leaves (params, stacked params, Adam state) → the same
+    tree of torch tensors on ``device``."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 
 def params_to_jax(tree) -> dict:
-    """Nested dict of torch tensors → the same nested dict of numpy arrays."""
+    """Tree of torch tensors → the same tree of numpy arrays."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 

@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("acquisition_scores", "fused_aggregation")
+SOURCES = ("acquisition_scores", "fused_aggregation", "ssd_intra_chunk",
+           "flash_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,1 +1,2 @@
-"""LeNet and its layers over a leading device axis."""
+"""The ported layers over a leading device axis: LeNet, and the LM blocks
+(norms, embeddings, RoPE, GQA attention, the Mamba-2 SSD block)."""

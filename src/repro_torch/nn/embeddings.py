@@ -1,0 +1,39 @@
+"""Token embedding and the tied unembedding over stacked tables
+(``repro.nn.embeddings`` ported).  The table is ``[D, vocab, dim]``."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.nn import init as initializers
+from repro_torch.nn.layers import device_matmul
+
+
+def embed_init(vocab: int, dim: int, generator: torch.Generator, *,
+               dtype=torch.float32):
+    return {"embedding": initializers.normal(0.02)((vocab, dim), generator,
+                                                   dtype)}
+
+
+def embed_apply(params, tokens: torch.Tensor, *, scale: bool = False,
+                dtype=torch.float32) -> torch.Tensor:
+    """tokens ``[D, ...]`` (or ``[1, ...]``, shared by every device) →
+    ``[D, ..., dim]``: each device looks up its own table."""
+    table = params["embedding"]
+    D = table.shape[0]
+    rows = torch.arange(D, device=table.device).reshape(
+        (D,) + (1,) * (tokens.dim() - 1))
+    emb = table[rows, tokens.long()].to(dtype)
+    if scale:
+        emb = emb * torch.tensor(math.sqrt(emb.shape[-1]), dtype=dtype)
+    return emb
+
+
+def unembed_apply(params, x: torch.Tensor, *, tied: bool = True):
+    """Project ``x [D, ..., dim]`` to the vocabulary.  With ``tied=True``
+    ``params`` is the embedding dict and the table is used transposed."""
+    if tied:
+        return device_matmul(x, params["embedding"].to(x.dtype)
+                             .transpose(-1, -2))
+    return device_matmul(x, params["kernel"].to(x.dtype))

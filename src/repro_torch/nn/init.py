@@ -1,4 +1,5 @@
-"""Parameter initializers (the LeNet part of ``repro.nn.init``).
+"""Parameter initializers (the part of ``repro.nn.init`` the ported models
+use).
 
 Each initializer takes ``(shape, generator, dtype)`` and draws from the
 explicit ``torch.Generator`` (on the generator's device), never from global
@@ -25,6 +26,14 @@ def _fans(shape, in_axis=-2, out_axis=-1):
     return shape[in_axis] * receptive, shape[out_axis] * receptive
 
 
+def normal(stddev: float = 1.0):
+    def _init(shape, generator, dtype=torch.float32):
+        return (stddev * torch.randn(shape, generator=generator,
+                                     device=generator.device)).to(dtype)
+
+    return _init
+
+
 def truncated_normal(shape, generator: torch.Generator, lower: float = -2.0,
                      upper: float = 2.0, dtype=torch.float32) -> torch.Tensor:
     """Standard normal truncated to ``[lower, upper]`` by inverse CDF (the
@@ -39,7 +48,8 @@ def truncated_normal(shape, generator: torch.Generator, lower: float = -2.0,
 
 
 def variance_scaling(scale: float, mode: str, in_axis=-2, out_axis=-1):
-    """Truncated-normal variance scaling (the only distribution LeNet uses)."""
+    """Truncated-normal variance scaling (the only distribution the ported
+    models use)."""
 
     def _init(shape, generator, dtype=torch.float32):
         fan_in, fan_out = _fans(shape, in_axis, out_axis)

@@ -1,10 +1,13 @@
-"""LeNet's layers over a leading device axis (``repro.nn.layers`` ported).
+"""Core layers over a leading device axis (``repro.nn.layers`` ported):
+dense, dropout, the gated and GELU MLPs of the LMs, and LeNet's conv/pool.
 
 Every layer takes STACKED parameters: each leaf carries a leading device
 axis ``[D, ...]`` (``D = 1`` for a single model), the written-out form of
-the JAX package's ``vmap`` over devices.  Activations are ``[D, N, ...]``;
-the first convolution also accepts images ``[N, H, W, C]`` shared by every
-device (a validation set), which it broadcasts instead of copying.
+the JAX package's ``vmap`` over devices.  Activations are ``[D, ...]``
+with any number of middle axes (``[D, N, C]`` for LeNet's dense layers,
+``[D, N, S, d]`` for a token sequence); the first convolution also accepts
+images ``[N, H, W, C]`` shared by every device (a validation set), which it
+broadcasts instead of copying.
 
 Layouts are the JAX package's: NHWC images, HWIO conv kernels, ``[in, out]``
 dense kernels.  ``conv2d_apply`` is the im2col + GEMM lowering of
@@ -21,12 +24,37 @@ import torch
 from repro_torch.nn import init as initializers
 
 
+# ---------------------------------------------------------------- helpers
+def per_device(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A stacked parameter ``[D, *s]`` reshaped to broadcast against
+    activations ``x [D, ..., *s]``."""
+    return p.reshape(p.shape[:1] + (1,) * (x.dim() - p.dim()) + p.shape[1:])
+
+
+def device_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-device product: x ``[D, ..., in]`` (or ``[1, ..., in]``, shared)
+    @ w ``[D, in, out]`` → ``[D, ..., out]``, as one batched GEMM over the
+    flattened middle axes."""
+    y = torch.matmul(x.reshape(x.shape[0], -1, x.shape[-1]), w)
+    return y.reshape((y.shape[0],) + tuple(x.shape[1:-1]) + (w.shape[-1],))
+
+
 # ---------------------------------------------------------------- dense
+def dense_init(in_dim: int, out_dim: int, generator: torch.Generator, *,
+               use_bias: bool = False, dtype=torch.float32):
+    p = {"kernel": initializers.lecun_normal()((in_dim, out_dim), generator,
+                                               dtype)}
+    if use_bias:
+        p["bias"] = torch.zeros((out_dim,), dtype=dtype,
+                                device=generator.device)
+    return p
+
+
 def dense_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """x ``[D, N, in]`` @ kernel ``[D, in, out]`` (+ bias ``[D, out]``)."""
-    y = torch.matmul(x, params["kernel"].to(x.dtype))
+    """x ``[D, ..., in]`` @ kernel ``[D, in, out]`` (+ bias ``[D, out]``)."""
+    y = device_matmul(x, params["kernel"].to(x.dtype))
     if "bias" in params:
-        y = y + params["bias"].to(x.dtype).unsqueeze(-2)
+        y = y + per_device(params["bias"].to(x.dtype), y)
     return y
 
 
@@ -51,6 +79,50 @@ def dropout(x: torch.Tensor, rate: float, *,
         keep_mask = torch.rand(x.shape, generator=generator,
                                device=x.device) < keep
     return torch.where(keep_mask, x / keep, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------- activations
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def geglu(x, gate):
+    return gelu(gate) * x
+
+
+def swiglu(x, gate):
+    return torch.nn.functional.silu(gate) * x
+
+
+# ---------------------------------------------------------------- gated MLP
+def mlp_init(d_model: int, d_ff: int, generator: torch.Generator, *,
+             dtype=torch.float32):
+    """Gated MLP (GeGLU and SwiGLU share parameter shapes)."""
+    ki = initializers.lecun_normal()
+    return {"wi_gate": {"kernel": ki((d_model, d_ff), generator, dtype)},
+            "wi_up": {"kernel": ki((d_model, d_ff), generator, dtype)},
+            "wo": {"kernel": ki((d_ff, d_model), generator, dtype)}}
+
+
+def mlp_apply(params, x, *, activation: str = "swiglu"):
+    gate = dense_apply(params["wi_gate"], x)
+    up = dense_apply(params["wi_up"], x)
+    h = swiglu(up, gate) if activation == "swiglu" else geglu(up, gate)
+    return dense_apply(params["wo"], h)
+
+
+def mlp_gelu_init(d_model: int, d_ff: int, generator: torch.Generator, *,
+                  use_bias: bool = True, dtype=torch.float32):
+    """Plain two-layer GELU MLP."""
+    return {"wi": dense_init(d_model, d_ff, generator, use_bias=use_bias,
+                             dtype=dtype),
+            "wo": dense_init(d_ff, d_model, generator, use_bias=use_bias,
+                             dtype=dtype)}
+
+
+def mlp_gelu_apply(params, x):
+    return dense_apply(params["wo"], gelu(dense_apply(params["wi"], x)))
 
 
 # ---------------------------------------------------------------- conv

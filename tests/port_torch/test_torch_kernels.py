@@ -8,7 +8,9 @@ jnp oracle.  Inputs come from numpy seeds.  Tolerances: 1e-5 absolute in
 float32 for the acquisition scores (the reference's own
 tests/test_kernels.py bar); atol 1e-6 + rtol 1e-5 for Eq. 1 reductions
 (the reference's tests/test_fused_aggregation.py bar), comparing bf16
-payloads after float32 accumulation (``out_dtype=float32``).
+payloads after float32 accumulation (``out_dtype=float32``); attention
+2e-5 in float32 and 2e-2 in bfloat16, SSD 1e-4 (the reference's
+tests/test_kernels.py bars).
 """
 import numpy as np
 import pytest
@@ -29,6 +31,8 @@ from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import mc_dropout as tmc  # noqa: E402
 from repro_torch.kernels import acquisition_scores as k1  # noqa: E402
 from repro_torch.kernels import fused_aggregation as k2  # noqa: E402
+from repro_torch.kernels import flash_attention as k3  # noqa: E402
+from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -314,3 +318,94 @@ def test_stacked_forms_match_reference():
     back = tagg.unstack_models(tagg.stack_models(tagg.unstack_models(tt)))
     np.testing.assert_array_equal(torch.stack([b["a"] for b in back]).numpy(),
                                   st["a"])
+
+
+# ------------------------------------------------- K1 determinism (Queue 3)
+@pytest.mark.parametrize("C", [10, 32768])
+def test_acquisition_plain_is_bitwise_repeatable(C):
+    """Two calls of the plain K1 version on one CPU tensor give the same
+    bits (the comparison chip_smoke.py makes on the card rests on it)."""
+    lp = torch.from_numpy(np.array(_logprobs(4, 32, C, "float32")))
+    first = k1.acquisition_scores_plain(lp)
+    for _ in range(3):
+        for a, b in zip(first, k1.acquisition_scores_plain(lp)):
+            assert torch.equal(a, b)
+
+
+# ------------------------------------------------------ K3 flash attention
+# the reference's tests/test_kernels.py cases:
+# B, Sq, Skv, H, Hkv, d, causal, window, softcap
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None),
+    (1, 128, 128, 8, 1, 64, True, 32, None),      # MQA + sliding window
+    (1, 96, 96, 4, 4, 128, True, None, 50.0),     # softcap
+    (2, 1, 80, 4, 4, 64, True, None, None),       # decode-like single query
+    (1, 64, 72, 4, 2, 64, False, None, None),     # non-causal
+    (1, 33, 47, 2, 2, 256, True, None, None),     # ragged, big head_dim
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_pallas_and_oracle(case, dtype):
+    """K3's plain version against ``ref.attention_ref`` and the Pallas
+    kernel in interpret mode: f32 2e-5, bf16 2e-2 (the reference's bars)."""
+    B, Sq, Skv, H, Hkv, d, causal, window, softcap = case
+    r = np.random.default_rng(sum(case[:6]))
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    q, k, v = (jnp.asarray(r.normal(size=s).astype(np.float32), jdt)
+               for s in ((B, Sq, H, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d)))
+    q_offset = Skv - Sq if causal else 0
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    tt = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(
+        getattr(torch, dtype))
+    before = k3.launches
+    got = k3.flash_attention(tt(q), tt(k), tt(v), **kw)     # CPU → plain
+    assert k3.launches == before and got.dtype == getattr(torch, dtype)
+    got = got.float().numpy()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    want = ref.attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=tol)
+    kern = ops.flash_attention(q, k, v, block_q=64, block_kv=64,
+                               interpret=True, **kw)
+    np.testing.assert_allclose(got, np.asarray(kern, np.float32), atol=tol)
+
+
+def test_flash_attention_plain_row_without_keys_is_zero():
+    q = torch.ones(1, 3, 2, 64)
+    out = k3.flash_attention(q, q, q, causal=True, q_offset=-2)
+    assert torch.all(out[:, :2] == 0) and torch.any(out[:, 2] != 0)
+
+
+# --------------------------------------------------- K4 SSD intra-chunk
+@pytest.mark.parametrize("Z,L,g,h,n,p", [(4, 32, 1, 2, 16, 8),
+                                         (2, 64, 2, 4, 32, 16),
+                                         (1, 128, 1, 1, 128, 64)])
+def test_ssd_intra_plain_matches_pallas_and_oracle(Z, L, g, h, n, p):
+    """K4's plain version takes B and C once per group ``[Z, L, g, n]``;
+    the reference's kernel and oracle take them repeated over the heads,
+    transposed to ``[Z·h, L, n]`` — done here, on the test side.  atol
+    1e-4 (the reference's bar)."""
+    r = np.random.default_rng(Z * L + n)
+    C = r.normal(size=(Z, L, g, n)).astype(np.float32)
+    B = r.normal(size=(Z, L, g, n)).astype(np.float32)
+    la = -np.cumsum(np.log1p(np.exp(r.normal(size=(Z, L, h)))),
+                    axis=1).astype(np.float32)
+    xdt = r.normal(size=(Z, L, h, p)).astype(np.float32)
+    before = k4.launches
+    y, st = k4.ssd_intra_chunk(*(torch.from_numpy(a) for a in (C, B, la, xdt)))
+    assert k4.launches == before
+    assert y.shape == (Z, L, h, p) and st.shape == (Z, h, p, n)
+
+    per_head = lambda a: np.repeat(a, h // g, axis=2).transpose(
+        0, 2, 1, 3).reshape(Z * h, L, n)
+    args = (jnp.asarray(per_head(C)), jnp.asarray(per_head(B)),
+            jnp.asarray(la.transpose(0, 2, 1).reshape(Z * h, L)),
+            jnp.asarray(xdt.transpose(0, 2, 1, 3).reshape(Z * h, L, p)))
+    y_t = y.numpy().transpose(0, 2, 1, 3).reshape(Z * h, L, p)
+    st_t = st.numpy().reshape(Z * h, p, n)
+    for y_j, st_j in (ref.ssd_intra_ref(*args),
+                      ops.ssd_intra_chunk(*args, interpret=True)):
+        np.testing.assert_allclose(y_t, np.asarray(y_j), atol=1e-4)
+        np.testing.assert_allclose(st_t, np.asarray(st_j), atol=1e-4)

@@ -6,15 +6,19 @@ no CPU mode) and run on the card with
     python -m pytest -q -m cuda tests/port_torch
 
 This file imports no JAX, so it runs on a machine that has only the port's
-dependencies.  Tolerances: 1e-5 absolute in float32 for both kernels
-(summation order differs from the plain version, nothing else).
+dependencies.  Tolerances: 1e-5 absolute in float32 for K1 and K2
+(summation order differs from the plain version, nothing else); K3 2e-5
+in float32 and 2e-2 in bfloat16, K4 1e-4 (the JAX package's bars for the
+kernels they replace).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import acquisition_scores as k1  # noqa: E402
+from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import fused_aggregation as k2  # noqa: E402
+from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -113,3 +117,88 @@ def test_fused_aggregate_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k2.fused_aggregate({"a": torch.ones(3, 4, device=cuda).t()},
                            torch.ones(4, device=cuda))
+
+
+# ------------------------------------------------------ K3 flash attention
+# B, Sq, Skv, H, Hkv, d, causal, window, softcap, q_offset
+ATTN_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None, 0),
+    (1, 128, 128, 8, 1, 64, True, 32, None, 0),
+    (1, 96, 96, 4, 4, 128, True, None, 50.0, 0),
+    (2, 1, 80, 4, 4, 64, True, None, None, 79),
+    (1, 64, 72, 4, 2, 64, False, None, None, 0),
+    (1, 33, 47, 2, 2, 256, True, None, None, 14),
+    (64, 32, 32, 10, 5, 64, True, None, None, 0),     # the decoder path
+    (1, 40, 40, 2, 1, 64, True, 7, 30.0, -5),         # rows without keys
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    B, Sq, Skv, H, Hkv, d, causal, window, softcap, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq * Skv + d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((B, Sq, H, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    before = k3.launches
+    got = k3.flash_attention(q, k, v, **kw)
+    assert k3.launches == before + 1 and got.dtype == dtype
+    want = k3.flash_attention_plain(q, k, v, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 4, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        k3.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 2, 64, device=cuda)
+    with pytest.raises(TypeError):
+        k3.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.flash_attention(q.transpose(1, 2), q, q)
+
+
+# --------------------------------------------------- K4 SSD intra-chunk
+# Z, L, g, h, n, p
+SSD_CASES = [(4, 32, 1, 1, 16, 8), (2, 64, 1, 1, 32, 16),
+             (1, 128, 1, 1, 128, 64), (2, 64, 2, 4, 32, 16),
+             (3, 256, 1, 4, 128, 64), (5, 37, 1, 3, 24, 40),
+             (2, 48, 1, 2, 256, 256),                 # several state passes
+             (64, 32, 1, 64, 128, 64)]                # the SSM path
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    Z, L, g, h, n, p = case
+    gen = torch.Generator(device=cuda).manual_seed(Z * L + n)
+    C, B = (torch.randn((Z, L, g, n), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    la = -torch.cumsum(torch.nn.functional.softplus(
+        torch.randn((Z, L, h), generator=gen, device=cuda)), dim=1)
+    xdt = torch.randn((Z, L, h, p), generator=gen, device=cuda).to(dtype)
+    before = k4.launches
+    y, st = k4.ssd_intra_chunk(C, B, la, xdt)
+    assert k4.launches == before + 1
+    y_p, st_p = k4.ssd_intra_chunk_plain(C, B, la, xdt)
+    torch.testing.assert_close(y, y_p, atol=1e-4, rtol=0)
+    torch.testing.assert_close(st, st_p, atol=1e-4, rtol=0)
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    z = torch.zeros(2, 8, 1, 16, device=cuda)
+    la = torch.zeros(2, 8, 3, device=cuda)
+    x = torch.zeros(2, 8, 3, 8, device=cuda)
+    with pytest.raises(TypeError):
+        k4.ssd_intra_chunk(z.half(), z.half(), la, x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.ssd_intra_chunk(z, z, la, x.transpose(2, 3).contiguous()
+                           .transpose(2, 3))
+    with pytest.raises(ValueError, match="register"):
+        k4.ssd_intra_chunk(torch.zeros(1, 8, 1, 16, device=cuda),
+                           torch.zeros(1, 8, 1, 16, device=cuda),
+                           torch.zeros(1, 8, 1, device=cuda),
+                           torch.zeros(1, 8, 1, 320, device=cuda))

@@ -260,9 +260,11 @@ def test_unported_options_raise(call):
                                 engine="legacy", device="cpu")
         elif call == "scenario":
             run_experiment(scenario="hetero", device="cpu")
-        else:
-            from repro_torch.core.model_adapter import ModelAdapter
-            Trainer(cfg, adapter=ModelAdapter(), device="cpu")
+        else:  # the LM adapters are ported; the MoE decoder is not yet
+            from repro_torch.core.model_adapter import DecoderLMAdapter
+            from repro_torch.models.config import ModelConfig
+            Trainer(cfg, adapter=DecoderLMAdapter(ModelConfig(n_experts=4)),
+                    device="cpu")
 
 
 def test_port_imports_no_jax():
