@@ -16,8 +16,10 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 4. the fused-aggregation kernel (K2) against its plain version: D = 256
    devices × the 61,706 LeNet parameters, flat preweighted (the engine's
    mode), plus every other mode (atol 1e-5), and D = 8 copies of the two
-   LM trees (~129M and ~95M parameters); kernel, plain and ``torch.mv``
-   times;
+   LM trees (~129M and ~95M parameters), tree A also in bfloat16 and int8;
+   two calls of each case must give equal bits; each case's kernel time
+   against its own byte bound, and kernel, plain and ``torch.mv`` times
+   in the engine's mode;
 5. the flash-attention kernel (K3) against its plain version: every case
    of the JAX package's tests/test_kernels.py in float32 (atol 2e-5) and
    bfloat16 (2e-2), and the decoder path's shape; kernel, plain and
@@ -214,6 +216,31 @@ def lenet_tree(torch, D, gen):
             for layer, leaves in shapes.items()}
 
 
+def k2_bound_ms(tree_leaves, payload, kw) -> float:
+    """K2's bound for one call: its payload read once at its own width (4,
+    2 or 1 bytes), the int8 scales and per-device vectors read once, the G
+    float32 outputs written once; 2 operations a payload element."""
+    leaves = tree_leaves(payload)
+    D = leaves[0].shape[0]
+    N = sum(leaf[0].numel() for leaf in leaves)
+    G = kw.get("num_segments") or 1
+    vectors = 1 + sum(kw.get(k) is not None for k in
+                      ("staleness", "mask", "segment_ids"))
+    scales = 4 * D * len(leaves) if kw.get("scales") is not None else 0
+    nbytes = (D * N * leaves[0].element_size() + 4 * G * N + 4 * D * vectors
+              + scales)
+    return bound_ms(nbytes, 2 * D * N)
+
+
+def check_k2_repeatable(torch, k2, tree_leaves, name, got, payload, weights,
+                        kw):
+    """A second K2 call on the same inputs must give the same bits."""
+    again = k2.fused_aggregate(payload, weights, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(again))):
+        raise AssertionError(f"K2 {name}: two calls differ")
+
+
 def check_aggregation_kernel(torch, k2, tree_leaves):
     """Phase 4: K2 vs its plain version on LeNet trees; returns the
     kernels-line entry."""
@@ -255,7 +282,14 @@ def check_aggregation_kernel(torch, k2, tree_leaves):
         torch.cuda.synchronize()
         err = max_err(torch, tree_leaves(got), tree_leaves(
             k2.fused_aggregate_plain(payload, weights, **kw)))
-        print(f"  K2 {name}: max_abs_err {err:.3e}")
+        check_k2_repeatable(torch, k2, tree_leaves, name, got, payload,
+                            weights, kw)
+        ms, _, host = timed(torch, lambda: k2.fused_aggregate(
+            payload, weights, **kw), "fused_aggregate_kernel")
+        bound = k2_bound_ms(tree_leaves, payload, kw)
+        print(f"  K2 {name}: max_abs_err {err:.3e}, two calls bit-equal; "
+              f"kernel {ms:.5f} ms, bound {bound:.5f} ms ({bound / ms:.3f} "
+              f"of it), per call with host overhead {host:.5f} ms")
         if not err <= 1e-5:
             raise AssertionError(f"K2 {name}: max_abs_err {err} > 1e-5")
         worst = max(worst, err)
@@ -321,7 +355,8 @@ def lm_path_configs(torch, fed):
 
 def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
     """Phase 4, LM trees: K2 over D = 8 stacked copies of each LM path's
-    parameter tree.  Returns (worst error, times per path)."""
+    parameter tree, and over tree A in bfloat16 and in int8 with scales.
+    Returns (worst error, times per case)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, times = 0.0, {}
     for name, cfg in configs.items():
@@ -337,9 +372,14 @@ def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
         torch.cuda.synchronize()
         err = max_err(torch, tree_leaves(got), tree_leaves(
             k2.fused_aggregate_plain(tree, w, normalize=False)))
+        check_k2_repeatable(torch, k2, tree_leaves, f"LM tree {name}", got,
+                            tree, w, {"normalize": False})
         del got
         if not err <= 1e-5:
             raise AssertionError(f"K2 LM tree {name}: max_abs_err {err}")
+        if name == "A":
+            worst = max(worst, check_aggregation_narrow_tree(
+                torch, k2, tree_leaves, tree_map, tree, w, gen, times))
         ms, how, _ = timed(torch, lambda: k2.fused_aggregate(
             tree, w, normalize=False), "fused_aggregate_kernel")
         plain, _, _ = timed(torch, lambda: k2.fused_aggregate_plain(
@@ -358,6 +398,45 @@ def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
                        "bound_ms": bound}
         torch.cuda.empty_cache()
     return worst, times
+
+
+def check_aggregation_narrow_tree(torch, k2, tree_leaves, tree_map, tree, w,
+                                  gen, times):
+    """Phase 4, tree A in bfloat16 and as int8 codes with per-(device, leaf)
+    scales: error against the plain version, two calls bit-equal, kernel
+    time against its own byte bound.  Returns the worst error."""
+    worst = 0.0
+    narrow = {
+        "A bf16": (tree_map(lambda a: a.to(torch.bfloat16), tree),
+                   {"normalize": False, "out_dtype": torch.float32}),
+        "A int8 + scales": (
+            tree_map(lambda a: torch.randint(-127, 128, a.shape, generator=gen,
+                                             device="cuda", dtype=torch.int8),
+                     tree),
+            {"normalize": False, "scales": tree_map(
+                lambda a: 1e-3 * torch.rand(8, generator=gen, device="cuda"),
+                tree)})}
+    for name, (payload, kw) in narrow.items():
+        got = k2.fused_aggregate(payload, w, **kw)
+        torch.cuda.synchronize()
+        err = max_err(torch, tree_leaves(got), tree_leaves(
+            k2.fused_aggregate_plain(payload, w, **kw)))
+        check_k2_repeatable(torch, k2, tree_leaves, f"LM tree {name}", got,
+                            payload, w, kw)
+        del got
+        if not err <= 1e-5:
+            raise AssertionError(f"K2 LM tree {name}: max_abs_err {err}")
+        ms, how, _ = timed(torch, lambda: k2.fused_aggregate(payload, w, **kw),
+                           "fused_aggregate_kernel")
+        bound = k2_bound_ms(tree_leaves, payload, kw)
+        print(f"  K2 LM tree {name} (D=8): max_abs_err {err:.3e}, two calls "
+              f"bit-equal; {how}: kernel {ms:.5f} ms, bound {bound:.5f} ms "
+              f"({bound / ms:.3f} of it)")
+        times[name] = {"ms": ms, "bound_ms": bound}
+        worst = max(worst, err)
+        del payload
+        torch.cuda.empty_cache()
+    return worst
 
 
 # the JAX package's tests/test_kernels.py attention cases:

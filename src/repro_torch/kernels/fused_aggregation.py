@@ -15,14 +15,21 @@ dtype, float32 for int8 codes).
 ``fused_aggregate`` is the wrapper ``core.aggregation.aggregate_stacked``
 calls.  For tensors on the CPU it runs ``fused_aggregate_plain`` (the port
 of ``repro.kernels.ref.fused_agg_ref``); for tensors on the card it
-launches the kernel once per group of up to 32 leaves (LeNet has 10), or
-raises on what the kernel does not take.  There is no fallback from one to
-the other.  ``launches`` counts kernel launches.
+launches the kernel once per group of up to 32 leaves (LeNet has 10, each
+LM tree 11), or raises on what the kernel does not take.  There is no
+fallback from one to the other.  ``launches`` counts kernel launches.
+
+``tile_plan`` is the kernel's tile table for one tree shape, built once
+per shape: which columns each tile covers, which leaves are read with
+16-byte loads, and how many row groups share a tile.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +40,9 @@ launches = 0
 
 DECAY_KINDS = ("none", "exp", "poly")
 MAX_LEAVES = 32           # leaf pointers per launch (the kernel's kMaxLeaves)
+THREADS = 256             # threads a block (the kernel's kThreads)
+MAX_ROW_GROUPS = 32       # the most row groups that split one tile
+TILES_PER_SM = 2          # tiles per SM before rows are split further
 _SMEM_LIMIT = 227 * 1024 - 2 * 1024   # dynamic shared memory a block may ask
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}
 
@@ -89,14 +99,96 @@ def _entry(dtype):
         from repro_torch.kernels import _build
         fn = getattr(_build.load("fused_aggregation"),
                      f"fused_aggregate_{_DTYPES[dtype]}")
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int, ctypes.c_void_p]
-                       + [ctypes.c_int] * 3
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = ([ptrs] * 3 + [ctypes.POINTER(ctypes.c_longlong),
+                                     ctypes.POINTER(ctypes.c_int),
+                                     ctypes.c_uint]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 2
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _ENTRIES[dtype] = fn
     return fn
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """The kernel's tile table for one tree shape.
+
+    Tile ``t`` of a launch lies in the last leaf ``l`` with
+    ``tile_offs[k][l] <= t`` and covers its columns ``[c0, min(c0 +
+    tile_cols, n_l))`` with ``c0 = (t - tile_offs[k][l]) * tile_cols``;
+    ``row_groups`` groups of ``THREADS / row_groups`` threads share its
+    rows.  Bit ``l`` of ``vec_masks[k]`` marks a leaf read with 16-byte
+    loads (its rows start on 16-byte boundaries)."""
+    row_groups: int
+    tile_cols: int
+    groups: Tuple[Tuple[int, int], ...]       # leaf [first, stop) a launch
+    tile_offs: Tuple[Tuple[int, ...], ...]    # first tile of each leaf, + all
+    vec_masks: Tuple[int, ...]
+    c_widths: tuple = field(compare=False, repr=False)
+    c_tile_offs: tuple = field(compare=False, repr=False)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(widths: Tuple[int, ...], itemsize: int,
+              aligned: Tuple[bool, ...], D: int, sms: int) -> TilePlan:
+    """The tile table of leaves of ``widths`` columns and ``itemsize``-byte
+    elements over ``D`` device rows, on a card of ``sms`` SMs.  ``aligned``
+    says which leaves start on a 16-byte boundary.
+
+    A thread owns 16 bytes of columns, so a tile spans ``(THREADS / R) ·
+    16 / itemsize`` columns.  The rows of a tile are split over ``R`` row
+    groups, R the least power of two (at most ``min(D, 32)``) that gives
+    ``TILES_PER_SM`` tiles per SM, which at 3-4 resident blocks an SM is
+    one wave: R = 1 over the LM trees at D = 8, R = 8 for LeNet at D = 256
+    (487 tiles of 128 float32 columns, 32 rows a row group)."""
+    vec = 16 // itemsize
+
+    def tiles(R, n):
+        return -(-n // ((THREADS // R) * vec))
+
+    R = 1
+    while (2 * R <= min(D, MAX_ROW_GROUPS)
+           and sum(tiles(R, n) for n in widths) < TILES_PER_SM * sms):
+        R *= 2
+    groups, offs, masks = [], [], []
+    for first in range(0, len(widths), MAX_LEAVES):
+        stop = min(first + MAX_LEAVES, len(widths))
+        off, mask = [0], 0
+        for l in range(first, stop):
+            n = widths[l]
+            off.append(off[-1] + tiles(R, n))
+            if aligned[l] and n * itemsize % 16 == 0:
+                mask |= 1 << (l - first)
+        if off[-1] >= 2 ** 31:
+            raise ValueError(f"{off[-1]} tiles exceed the kernel's int32 "
+                             f"tile index")
+        groups.append((first, stop))
+        offs.append(tuple(off))
+        masks.append(mask)
+    return TilePlan(
+        row_groups=R, tile_cols=(THREADS // R) * vec, groups=tuple(groups),
+        tile_offs=tuple(offs), vec_masks=tuple(masks),
+        c_widths=tuple((ctypes.c_longlong * (b - a))(*widths[a:b])
+                       for a, b in groups),
+        c_tile_offs=tuple((ctypes.c_int * len(o))(*o) for o in offs))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _per_device(v, D, dev, what):
+    v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1)
+    if v.shape[0] != D:
+        raise ValueError(f"{what} of length {v.shape[0]} for D={D}")
+    return v.contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def fused_aggregate(stacked, weights, *, staleness=None, mask=None,
@@ -133,57 +225,52 @@ def fused_aggregate(stacked, weights, *, staleness=None, mask=None,
             raise ValueError(f"leaf {path!r}: every payload leaf must be a "
                              f"contiguous [D={D}, ...] {dtype} tensor on {dev}")
     G = 1 if segment_ids is None else int(num_segments)
-    if (3 * D + 3 * G) * 4 > _SMEM_LIMIT:
+    itemsize = leaves[0].element_size()
+    if (THREADS * 16 // itemsize + 4 * D + 4 * G + 1) * 4 > _SMEM_LIMIT:
         raise ValueError(f"D={D}, G={G} exceed the kernel's shared memory")
 
-    def vec(v, fill):
-        if v is None:
-            return torch.full((D,), fill, dtype=torch.float32, device=dev)
-        v = torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(-1)
-        if v.shape[0] != D:
-            raise ValueError(f"per-device vector of length {v.shape[0]} for "
+    raw = _per_device(weights, D, dev, "weights")
+    stale = None if staleness is None else _per_device(staleness, D, dev,
+                                                       "staleness")
+    msk = None if mask is None else _per_device(mask, D, dev, "mask")
+    seg = None
+    if segment_ids is not None:
+        seg = (torch.as_tensor(segment_ids, device=dev).to(torch.int32)
+               .reshape(-1).contiguous())
+        if seg.shape[0] != D:
+            raise ValueError(f"segment_ids of length {seg.shape[0]} for "
                              f"D={D}")
-        return v.contiguous()
-
-    raw, stale, msk = vec(weights, 1.0), vec(staleness, 0.0), vec(mask, 1.0)
-    seg = (torch.zeros(D, dtype=torch.int32, device=dev)
-           if segment_ids is None else
-           torch.as_tensor(segment_ids, device=dev).to(torch.int32)
-           .reshape(-1).contiguous())
-    if seg.shape[0] != D:
-        raise ValueError(f"segment_ids of length {seg.shape[0]} for D={D}")
-    smat = None
+    sc_ptrs = None
     if quantized:
-        s_leaves = tree_leaves(scales)
+        s_leaves = [_per_device(s, D, dev, "scales")
+                    for s in tree_leaves(scales)]
         if len(s_leaves) != len(leaves):
             raise ValueError(f"scales tree has {len(s_leaves)} leaves for "
                              f"{len(leaves)} payload leaves")
-        smat = torch.stack([torch.as_tensor(s, dtype=torch.float32,
-                                            device=dev).reshape(D)
-                            for s in s_leaves], dim=1).contiguous()  # [D, L]
+        sc_ptrs = [s.data_ptr() for s in s_leaves]
 
-    outs = [torch.empty((G,) + tuple(leaf.shape[1:]), dtype=torch.float32,
+    x_ptrs = [leaf.data_ptr() for leaf in leaves]
+    plan = tile_plan(tuple(math.prod(leaf.shape[1:]) for leaf in leaves),
+                     itemsize, tuple(p % 16 == 0 for p in x_ptrs), D,
+                     _sm_count(dev.index if dev.index is not None
+                               else torch.cuda.current_device()))
+    lead = () if segment_ids is None else (G,)
+    outs = [torch.empty(lead + tuple(leaf.shape[1:]), dtype=torch.float32,
                         device=dev) for leaf in leaves]
     fn = _entry(dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     kind_id = DECAY_KINDS.index(kind)
     global launches
-    for base in range(0, len(leaves), MAX_LEAVES):
-        grp = range(base, min(base + MAX_LEAVES, len(leaves)))
-        offsets = [0]
-        for i in grp:
-            offsets.append(offsets[-1] + leaves[i][0].numel())
-        xs = (ctypes.c_void_p * len(grp))(*[leaves[i].data_ptr() for i in grp])
-        os_ = (ctypes.c_void_p * len(grp))(*[outs[i].data_ptr() for i in grp])
-        offs = (ctypes.c_longlong * len(offsets))(*offsets)
-        err = fn(ctypes.cast(xs, ctypes.c_void_p),
-                 ctypes.cast(os_, ctypes.c_void_p),
-                 ctypes.cast(offs, ctypes.c_void_p), len(grp), D,
-                 raw.data_ptr(), stale.data_ptr(), msk.data_ptr(),
-                 seg.data_ptr(), G,
-                 None if smat is None else smat.data_ptr(),
-                 0 if smat is None else smat.shape[1], base, kind_id,
-                 float(rate), int(bool(normalize)), stream)
+    for k, (first, stop) in enumerate(plan.groups):
+        count = stop - first
+        arr = ctypes.c_void_p * count
+        err = fn(arr(*x_ptrs[first:stop]),
+                 arr(*[o.data_ptr() for o in outs[first:stop]]),
+                 None if sc_ptrs is None else arr(*sc_ptrs[first:stop]),
+                 plan.c_widths[k], plan.c_tile_offs[k], plan.vec_masks[k],
+                 count, D, plan.row_groups, raw.data_ptr(), _ptr(stale),
+                 _ptr(msk), _ptr(seg), G, kind_id, float(rate),
+                 int(bool(normalize)), stream)
         if err != 0:
             raise RuntimeError(f"fused-aggregation kernel launch failed: CUDA "
                                f"error {err}")
@@ -193,8 +280,6 @@ def fused_aggregate(stacked, weights, *, staleness=None, mask=None,
 
     def finish(leaf):
         out = next(results)
-        if segment_ids is None:
-            out = out[0]
         dt = out_dtype if out_dtype is not None else (
             torch.float32 if quantized else leaf.dtype)
         return out if dt == torch.float32 else out.to(dt)

@@ -12,6 +12,8 @@ payloads after float32 accumulation (``out_dtype=float32``); attention
 2e-5 in float32 and 2e-2 in bfloat16, SSD 1e-4 (the reference's
 tests/test_kernels.py bars).
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -33,6 +35,7 @@ from repro_torch.kernels import acquisition_scores as k1  # noqa: E402
 from repro_torch.kernels import fused_aggregation as k2  # noqa: E402
 from repro_torch.kernels import flash_attention as k3  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -228,6 +231,84 @@ def test_fused_aggregate_validation():
     with pytest.raises(ValueError, match="num_segments"):
         k2.fused_aggregate(tree, torch.ones(2),
                            segment_ids=torch.zeros(2, dtype=torch.int32))
+
+
+def _lm_widths(adapter):
+    """Columns of each leaf of an LM adapter's tree, from shapes only
+    (fake tensors: nothing is allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        tree = adapter.init(torch.Generator())
+    return tuple(leaf[0].numel() for leaf in tree_leaves(tree))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_widths(name):
+    if name == "lenet":          # LeNet's 10 leaves, 61,706 params
+        return (150, 6, 2400, 16, 48000, 120, 10080, 84, 840, 10)
+    if name == "odd":
+        return (1, 3, 4, 5, 8, 16, 17, 4099, 0, 12, 33)
+    if name == "many":           # more leaves than one launch takes
+        return tuple(range(1, 41))
+    from dataclasses import replace
+    from repro_torch.core.model_adapter import DecoderLMAdapter, SSMAdapter
+    from repro_torch.models.config import lm_100m, mamba2_1_3b
+    if name == "ssm":            # path A: one Mamba-2 block, 1.3b widths
+        return _lm_widths(SSMAdapter(replace(
+            mamba2_1_3b(), n_layers=1, param_dtype=torch.float32,
+            dtype=torch.float32)))
+    return _lm_widths(DecoderLMAdapter(lm_100m()))    # path B
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("D", [1, 8, 256, 300])
+@pytest.mark.parametrize("name", ["lenet", "ssm", "decoder", "odd", "many"])
+def test_fused_aggregate_tile_plan_covers_every_column_once(name, D,
+                                                            itemsize):
+    """The kernel's tile table, walked as the kernel walks it (tile → leaf
+    by the last first-tile ≤ t; thread lanes → columns): every column of
+    every leaf falls in exactly one tile and one thread, and only leaves
+    whose rows all start on 16-byte boundaries take 16-byte loads."""
+    widths = _plan_widths(name)
+    aligned = tuple(i % 7 != 3 for i in range(len(widths)))  # some not
+    sms = 132
+    plan = k2.tile_plan(widths, itemsize, aligned, D, sms)
+    R, TW, vec = plan.row_groups, plan.tile_cols, 16 // itemsize
+    assert R & (R - 1) == 0 and R <= min(D, k2.MAX_ROW_GROUPS)
+    assert TW == (k2.THREADS // R) * vec
+    C = k2.THREADS // R
+    # lanes → columns of one tile: vector lanes own V neighbours, scalar
+    # lanes columns lc + k·C; both cover the tile's TW columns once
+    vec_cols = sorted(lc * vec + k for lc in range(C) for k in range(vec))
+    scalar_cols = sorted(lc + k * C for lc in range(C) for k in range(vec))
+    assert vec_cols == scalar_cols == list(range(TW))
+    total = sum(off[-1] for off in plan.tile_offs)
+    assert (total >= k2.TILES_PER_SM * sms
+            or R == min(D, k2.MAX_ROW_GROUPS) or R == 1 and D == 1)
+    seen = []
+    for (first, stop), off, mask in zip(plan.groups, plan.tile_offs,
+                                        plan.vec_masks):
+        assert 0 < stop - first <= k2.MAX_LEAVES and len(off) == stop - first + 1
+        seen.extend(range(first, stop))
+        t = np.arange(off[-1])
+        leaf = np.searchsorted(np.asarray(off[:-1]), t, side="right") - 1
+        for l in range(stop - first):
+            n = widths[first + l]
+            c0 = (t[leaf == l] - off[l]) * TW
+            # consecutive, disjoint tiles whose union is exactly [0, n)
+            np.testing.assert_array_equal(c0, np.arange(0, n, TW))
+            is_vec = bool(mask >> l & 1)
+            assert is_vec == (aligned[first + l] and n * itemsize % 16 == 0)
+            if is_vec:               # every row and lane start is aligned
+                assert (n * itemsize) % 16 == 0 and (TW * itemsize) % 16 == 0
+                assert int(c0.max(initial=0)) * itemsize % 16 == 0
+    assert seen == list(range(len(widths)))
+    if name in ("ssm", "decoder"):       # the LM trees' bulk is vectorised
+        big = [i for i, n in enumerate(widths) if n >= 1 << 16]
+        assert all(plan.vec_masks[0] >> i & 1 for i in big if aligned[i])
+    if name == "lenet" and D == 256 and itemsize == 4:
+        # the massive path splits the rows: R = 8, 487 tiles
+        assert R == 8 and total >= k2.TILES_PER_SM * sms
 
 
 # ------------------------------------------------------ aggregation module

@@ -54,18 +54,35 @@ def test_acquisition_kernel_rejects_what_it_does_not_take(cuda):
         k1.acquisition_scores(torch.zeros(2, 3, 4, device=cuda).transpose(0, 1))
 
 
-def _tree(gen, D, dtype, cuda):
-    shapes = {"a": (3, 4), "b": (7,), "c": (), "d": (2, 1, 2),
-              "e": (61, 13)}
+# leaf shapes: 16-byte rows for some payload types only (vector path), odd
+# widths (scalar path), and widths that leave a ragged last tile
+TREE_SHAPES = {"a": (3, 4), "b": (7,), "c": (), "d": (2, 1, 2),
+               "e": (61, 13), "w3": (3,), "w5": (5,), "w8": (8,),
+               "w16": (16,), "w17": (17,), "w4099": (4099,)}
+
+
+def _leaf(gen, shape, dtype, cuda):
     if dtype == torch.int8:
-        return {k: torch.randint(-127, 128, (D,) + s, generator=gen,
-                                 device=cuda, dtype=torch.int8)
-                for k, s in shapes.items()}
-    return {k: torch.randn((D,) + s, generator=gen, device=cuda).to(dtype)
-            for k, s in shapes.items()}
+        return torch.randint(-127, 128, shape, generator=gen, device=cuda,
+                             dtype=torch.int8)
+    return torch.randn(shape, generator=gen, device=cuda).to(dtype)
 
 
-@pytest.mark.parametrize("D", [1, 4, 8, 64, 300])
+def _tree(gen, D, dtype, cuda, shapes=TREE_SHAPES):
+    return {k: _leaf(gen, (D,) + s, dtype, cuda) for k, s in shapes.items()}
+
+
+def _assert_matches_plain(tree, raw, **kw):
+    before = k2.launches
+    got = k2.fused_aggregate(tree, raw, **kw)
+    assert k2.launches == before + 1
+    want = k2.fused_aggregate_plain(tree, raw, **kw)
+    for k in tree:
+        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=1e-5)
+    return got
+
+
+@pytest.mark.parametrize("D", [1, 4, 8, 64, 256, 300])
 @pytest.mark.parametrize("segmented", [False, True])
 @pytest.mark.parametrize("normalize", [True, False])
 @pytest.mark.parametrize("kind", ["none", "exp", "poly"])
@@ -87,12 +104,88 @@ def test_fused_aggregate_kernel_matches_plain(cuda, D, segmented, normalize,
     if dtype == torch.int8:
         kw["scales"] = {k: 1e-2 * torch.rand(D, generator=gen, device=cuda)
                         for k in tree}
-    before = k2.launches
-    got = k2.fused_aggregate(tree, raw, **kw)
-    assert k2.launches == before + 1
-    want = k2.fused_aggregate_plain(tree, raw, **kw)
+    _assert_matches_plain(tree, raw, **kw)
+
+
+@pytest.mark.parametrize("width", [1, 3, 4, 5, 8, 16, 17, 4099])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_fused_aggregate_kernel_misaligned_leaf(cuda, width, dtype):
+    """A contiguous leaf that starts one element past a 16-byte boundary
+    (a view at an odd storage offset) takes the scalar path."""
+    D = 8
+    gen = torch.Generator(device=cuda).manual_seed(width)
+    base = _leaf(gen, (D * width + 1,), dtype, cuda)
+    tree = {"aligned": _leaf(gen, (D, width), dtype, cuda),
+            "odd": base[1:].view(D, width)}
+    assert tree["odd"].is_contiguous() and tree["odd"].data_ptr() % 16 != 0
+    kw = dict(normalize=False, out_dtype=torch.float32)
+    if dtype == torch.int8:
+        kw["scales"] = {k: 1e-2 * torch.rand(D, generator=gen, device=cuda)
+                        for k in tree}
+    _assert_matches_plain(tree, torch.rand(D, generator=gen, device=cuda),
+                          **kw)
+
+
+@pytest.mark.parametrize("D", [256, 300])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_fused_aggregate_kernel_many_segments(cuda, D, normalize, dtype):
+    """G = 40 segments (the last one empty): each segment's pass reads its
+    own rows, in device order."""
+    G = 40
+    gen = torch.Generator(device=cuda).manual_seed(D + G)
+    tree = _tree(gen, D, dtype, cuda)
+    kw = dict(segment_ids=torch.randint(0, G - 1, (D,), generator=gen,
+                                        device=cuda),
+              num_segments=G, normalize=normalize,
+              mask=(torch.rand(D, generator=gen, device=cuda) < 0.7).float(),
+              out_dtype=torch.float32)
+    if dtype == torch.int8:
+        kw["scales"] = {k: 1e-2 * torch.rand(D, generator=gen, device=cuda)
+                        for k in tree}
+    got = _assert_matches_plain(tree, torch.rand(D, generator=gen,
+                                                 device=cuda), **kw)
+    assert all(bool((v[G - 1] == 0).all()) for v in got.values())
+
+
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("kind", ["none", "exp"])
+def test_fused_aggregate_kernel_absent_vectors(cuda, segmented, kind):
+    """No staleness and no mask: the kernel reads null as 0 and 1."""
+    D = 64
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    tree = _tree(gen, D, torch.float32, cuda)
+    kw = dict(kind=kind, rate=0.6)
+    if segmented:
+        kw.update(segment_ids=torch.randint(0, 5, (D,), generator=gen,
+                                            device=cuda), num_segments=5)
+    _assert_matches_plain(tree, torch.rand(D, generator=gen, device=cuda),
+                          **kw)
+
+
+@pytest.mark.parametrize("D", [8, 256])
+@pytest.mark.parametrize("segmented", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_fused_aggregate_kernel_is_bitwise_repeatable(cuda, D, segmented,
+                                                      dtype):
+    """Two calls on the same inputs give equal bits: no atomics, and a
+    summation order fixed by the shapes."""
+    gen = torch.Generator(device=cuda).manual_seed(3 * D)
+    tree = _tree(gen, D, dtype, cuda, {"conv3": (5, 5, 16, 120),
+                                       "fc1": (120, 84), "bias": (10,)})
+    kw = dict(normalize=True, mask=(torch.rand(
+        D, generator=gen, device=cuda) < 0.8).float())
+    if segmented:
+        kw.update(segment_ids=torch.randint(0, 16, (D,), generator=gen,
+                                            device=cuda), num_segments=16)
+    if dtype == torch.int8:
+        kw["scales"] = {k: 1e-2 * torch.rand(D, generator=gen, device=cuda)
+                        for k in tree}
+    raw = torch.rand(D, generator=gen, device=cuda)
+    one = k2.fused_aggregate(tree, raw, **kw)
+    two = k2.fused_aggregate(tree, raw, **kw)
     for k in tree:
-        torch.testing.assert_close(got[k], want[k], atol=1e-5, rtol=1e-5)
+        assert torch.equal(one[k], two[k]), k
 
 
 def test_fused_aggregate_kernel_groups_many_leaves(cuda):
