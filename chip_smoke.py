@@ -25,8 +25,9 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    bfloat16 (2e-2), and the decoder path's shape; kernel, plain and
    ``scaled_dot_product_attention`` times;
 6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
-   package's test shapes, the published chunk L = 256 (n 128, p 64) and
-   the SSM path's shape (atol 1e-4); kernel and plain times;
+   package's test shapes, the kernel's edges and the SSM path's shape
+   (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
+   path's shape and at the published chunk (L = 256, n 128, p 64);
 7. small RNG-free rounds on the card against the same rounds on the CPU:
    LeNet (paper round), the reduced SSM LM and a small decoder LM (fused
    rounds); the CPU port is held against the JAX package by the tests;
@@ -189,12 +190,13 @@ def check_acquisition_kernel(torch, k1):
     lpm = cases["massive [D=256, T=4, W=32, C=10]"]
     ms_m, _, host_m = timed(torch, lambda: k1.acquisition_scores(lpm),
                             "acquisition_scores_kernel")
+    plain_m, _, _ = timed(torch, lambda: k1.acquisition_scores_plain(lpm))
     bound_m = bound_ms(lpm.numel() * 4 + 3 * 256 * 32 * 4, 4 * lpm.numel())
     print(f"  K1 paper shape, {how}: kernel {ms:.5f} ms, plain {plain:.5f} "
           f"ms, bound {bound:.5f} ms; per call with host overhead: wrapper "
           f"{host:.5f} ms, plain {plain_host:.5f} ms")
-    print(f"  K1 massive shape: kernel {ms_m:.5f} ms, bound {bound_m:.5f} "
-          f"ms, wrapper per call {host_m:.5f} ms")
+    print(f"  K1 massive shape: kernel {ms_m:.5f} ms, plain {plain_m:.5f} "
+          f"ms, bound {bound_m:.5f} ms, wrapper per call {host_m:.5f} ms")
     return {"name": "acquisition_scores", "route": "cuda",
             "source": "src/repro_torch/csrc/acquisition_scores.cu",
             "replaces": "src/repro/kernels/acquisition_scores.py:49",
@@ -518,12 +520,18 @@ def check_flash_attention_kernel(torch, k3):
 
 # (Z, L, g, h, n, p): the JAX package's tests/test_kernels.py shapes
 # (G, L, n, p) with one head per group, a multi-head case, the published
-# chunk, and path A's MC-scoring call (8 devices x T=4 x W=32 sequences of
-# 32 tokens, 64 heads of 64, state 128, one group)
+# chunk, the kernel's edges (head counts a 16-head block does not divide,
+# two groups, a 5-row last tile, rows that are not 16 bytes long), and
+# path A's MC-scoring call (8 devices x T=4 x W=32 sequences of 32 tokens,
+# 64 heads of 64, state 128, one group)
 SSD_CASES = [(4, 32, 1, 1, 16, 8), (2, 64, 1, 1, 32, 16),
              (1, 128, 1, 1, 128, 64), (2, 64, 2, 4, 32, 16),
-             (4, 256, 1, 8, 128, 64)]
+             (4, 256, 1, 8, 128, 64), (3, 32, 1, 5, 128, 64),
+             (2, 32, 1, 67, 128, 64), (2, 64, 2, 6, 32, 16),
+             (3, 37, 1, 4, 128, 64), (2, 40, 1, 67, 21, 13)]
 PATH_A_SSD = (1024, 32, 1, 64, 128, 64)
+# the published chunk at mamba2-1.3b widths: 8 sequences of 2048 tokens
+PUBLISHED_SSD = (64, 256, 1, 64, 128, 64)
 
 
 def ssd_inputs(torch, gen, Z, L, g, h, n, p, dtype=None):
@@ -536,46 +544,68 @@ def ssd_inputs(torch, gen, Z, L, g, h, n, p, dtype=None):
     return C, B, la, xdt
 
 
+def ssd_bound(Z, L, g, h, n, p):
+    """K4's bound at one float32 shape: C, B, la and xdt read once, y and
+    the state written once; the causal C·Bᵀ once per group, the causal y
+    and the state per head.  Returns (bound ms, bytes, flops, bound_by)."""
+    pairs = L * (L + 1) // 2
+    nbytes = 4 * (2 * Z * L * g * n + Z * L * h + 2 * Z * L * h * p
+                  + Z * h * p * n)
+    flops = 2 * Z * (g * pairs * n + h * (pairs * p + L * p * n))
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+          else "operations")
+    return bound_ms(nbytes, flops), nbytes, flops, by
+
+
 def check_ssd_kernel(torch, k4):
-    """Phase 6: K4 vs its plain version; returns the kernels-line entry."""
+    """Phase 6: K4 vs its plain version, two calls bit-equal; kernel and
+    plain times at path A's shape and at the published chunk.  Returns the
+    kernels-line entry (path A's numbers, both shapes under "shapes")."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
     cases = [(c, torch.float32) for c in SSD_CASES + [PATH_A_SSD]]
-    cases.append((SSD_CASES[-1], torch.bfloat16))
+    cases += [(c, torch.bfloat16) for c in (SSD_CASES[4], SSD_CASES[-1],
+                                            PATH_A_SSD)]
     for case, dtype in cases:
         args = ssd_inputs(torch, gen, *case, dtype=dtype)
         got = k4.ssd_intra_chunk(*args)
         torch.cuda.synchronize()
         err = max_err(torch, got, k4.ssd_intra_chunk_plain(*args))
+        again = k4.ssd_intra_chunk(*args)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"K4 {case} {dtype}: two calls differ")
         print(f"  K4 (Z, L, g, h, n, p) = {case} {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e}")
+              f"max_abs_err {err:.3e}, two calls bit-equal")
         if not err <= 1e-4:
             raise AssertionError(f"K4 {case}: max_abs_err {err} > 1e-4")
         worst = max(worst, err)
-        del got, args
+        del got, again, args
 
-    Z, L, g, h, n, p = PATH_A_SSD
-    args = ssd_inputs(torch, gen, *PATH_A_SSD)
-    ms, how, host = timed(torch, lambda: k4.ssd_intra_chunk(*args),
-                          "ssd_intra_chunk_kernel")
-    plain, _, _ = timed(torch, lambda: k4.ssd_intra_chunk_plain(*args))
-    pairs = L * (L + 1) // 2
-    nbytes = 4 * (2 * Z * L * g * n + Z * L * h + 2 * Z * L * h * p
-                  + Z * h * p * n)
-    flops = 2 * Z * (g * pairs * n + h * (pairs * p + L * p * n))
-    bound = bound_ms(nbytes, flops)
-    print(f"  K4 path-A shape (Z, L, g, h, n, p) = {PATH_A_SSD} f32, {how}: "
-          f"kernel {ms:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms "
-          f"({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP); wrapper per "
-          f"call with host overhead {host:.5f} ms")
+    shapes = []
+    for name, shape in (("path A", PATH_A_SSD), ("published chunk",
+                                                 PUBLISHED_SSD)):
+        args = ssd_inputs(torch, gen, *shape)
+        ms, how, host = timed(torch, lambda: k4.ssd_intra_chunk(*args),
+                              "ssd_intra_chunk_kernel")
+        plain, _, _ = timed(torch, lambda: k4.ssd_intra_chunk_plain(*args))
+        bound, nbytes, flops, by = ssd_bound(*shape)
+        print(f"  K4 {name} (Z, L, g, h, n, p) = {shape} f32, {how}: kernel "
+              f"{ms:.5f} ms, plain {plain:.5f} ms, bound {bound:.5f} ms by "
+              f"{by} ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP; "
+              f"{bound / ms:.3f} of it); wrapper per call with host "
+              f"overhead {host:.5f} ms")
+        shapes.append({"shape": list(shape), "ms": ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by})
+        del args
+        torch.cuda.empty_cache()
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:50",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / FP32_FLOPS else "operations",
-            "library_ms": None}
+            "max_abs_err": worst, "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"],
+            "bound_ms": shapes[0]["bound_ms"],
+            "bound_by": shapes[0]["bound_by"], "library_ms": None,
+            "shapes": shapes}
 
 
 def check_small_lm_rounds_against_cpu(torch, fed, interop):

@@ -490,3 +490,69 @@ def test_ssd_intra_plain_matches_pallas_and_oracle(Z, L, g, h, n, p):
                       ops.ssd_intra_chunk(*args, interpret=True)):
         np.testing.assert_allclose(y_t, np.asarray(y_j), atol=1e-4)
         np.testing.assert_allclose(st_t, np.asarray(st_j), atol=1e-4)
+
+
+# K4's launch plan: (Z, L, g, h, n, p, itemsize, C/B aligned, xdt aligned)
+# → (heads a block, blocks, shared memory bytes, flags)
+_F = k4.VEC_BC | k4.VEC_X | k4.VEC_STATE | k4.VEC_Y
+_FB = _F | k4.BULK_STATE
+
+
+@pytest.mark.parametrize("args,want", [
+    # path A, the LM fleet's call: 16 heads a block, 4 blocks a chunk, the
+    # state out through bulk copies (32 KB a head)
+    ((1024, 32, 1, 64, 128, 64, 4, True, True), (16, 4096, 102400, _FB)),
+    ((1024, 32, 1, 64, 128, 64, 2, True, True), (16, 4096, 102400, _FB)),
+    # the published chunk at mamba2-1.3b widths: one block an SM, no room
+    # for a bulk copy's 32 KB
+    ((64, 256, 1, 64, 128, 64, 4, True, True), (16, 256, 230912, _F)),
+    # head counts the slice does not divide; two groups
+    ((3, 32, 1, 5, 128, 64, 4, True, True), (5, 3, 100992, _FB)),
+    ((2, 32, 1, 67, 128, 64, 4, True, True), (16, 10, 102400, _FB)),
+    ((2, 64, 2, 6, 32, 16, 4, True, True), (3, 4, 36096, _FB)),
+    # L = 37: two tiles, the second with 5 rows
+    ((5, 37, 1, 3, 128, 64, 4, True, True), (3, 5, 122112, _FB)),
+    # 16-byte rows (n 24, p 40 in float32; p 40 in bf16); rows that are not
+    ((5, 37, 1, 3, 24, 40, 4, True, True), (3, 5, 44032, _FB)),
+    ((5, 37, 1, 3, 24, 40, 2, True, True), (3, 5, 44032, _FB)),
+    ((2, 40, 1, 67, 21, 13, 4, True, True), (16, 10, 34304, 0)),
+    ((3, 33, 1, 5, 20, 12, 2, True, True),
+     (5, 3, 30912, k4.VEC_STATE | k4.VEC_Y | k4.BULK_STATE)),
+    # an xdt view one element past a 16-byte boundary: scalar x copies
+    ((64, 32, 1, 64, 128, 64, 4, True, False),
+     (16, 256, 102400, _FB & ~k4.VEC_X)),
+    # a 256 x 256 state takes 8 rounds of register tiles: register stores
+    ((2, 48, 1, 2, 256, 256, 4, False, True),
+     (2, 2, 211968, _F & ~k4.VEC_BC)),
+])
+def test_ssd_launch_plan(args, want):
+    """The launch the wrapper makes, in plain Python: a block owns up to 16
+    heads of one group, shared memory is the kernel's layout, 16-byte
+    copies and stores fall only on rows that start on 16 bytes, and a bulk
+    state copy only where the state is whole 16-byte rows that one round of
+    register tiles covers."""
+    plan = k4.launch_plan(*args)
+    assert (plan.heads_per_block, plan.blocks, plan.smem, plan.flags) == want
+    Z, L, g, h, n, p, itemsize = args[:7]
+    bulk = bool(plan.flags & k4.BULK_STATE)
+    assert plan.blocks == Z * g * -(-(h // g) // plan.heads_per_block)
+    assert plan.smem <= k4.SMEM_LIMIT
+    assert plan.smem == k4.smem_bytes(L, n, p, plan.heads_per_block,
+                                      itemsize, bulk)
+    if bulk:                 # whole 16-byte rows, one round of tiles
+        assert n % 4 == 0 and -(-n // 32) * -(-p // 32) <= 8
+    if plan.flags & k4.VEC_X:
+        assert args[8] and p * itemsize % 16 == 0
+    if plan.flags & k4.VEC_BC:
+        assert args[7] and n * itemsize % 16 == 0
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 8, 1, 1, 16, 320, 4, True, True), "register"),
+    ((1, 256, 1, 8, 256, 64, 4, True, True), "shared memory"),
+    ((1, 512, 1, 8, 128, 64, 4, True, True), "shared memory"),
+    ((1, 32, 2, 3, 16, 8, 4, True, True), "groups"),
+])
+def test_ssd_launch_plan_rejects(args, match):
+    with pytest.raises(ValueError, match=match):
+        k4.launch_plan(*args)

@@ -260,12 +260,17 @@ SSD_CASES = [(4, 32, 1, 1, 16, 8), (2, 64, 1, 1, 32, 16),
              (1, 128, 1, 1, 128, 64), (2, 64, 2, 4, 32, 16),
              (3, 256, 1, 4, 128, 64), (5, 37, 1, 3, 24, 40),
              (2, 48, 1, 2, 256, 256),                 # several state passes
-             (64, 32, 1, 64, 128, 64)]                # the SSM path
+             (64, 32, 1, 64, 128, 64),                # the SSM path
+             # head counts a 16-head slice does not divide; two groups
+             (3, 32, 1, 5, 128, 64), (2, 32, 1, 67, 128, 64),
+             (2, 64, 2, 6, 32, 16),
+             # L = 37 (a 5-row last tile) and L = 256 at mamba2-1.3b widths
+             (3, 37, 1, 4, 128, 64), (2, 256, 1, 20, 128, 64),
+             # rows that are not 16 bytes long: scalar copies and stores
+             (2, 40, 1, 67, 21, 13), (3, 33, 1, 5, 20, 12)]
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_matches_plain(cuda, case, dtype):
+def _ssd_inputs(case, dtype, cuda):
     Z, L, g, h, n, p = case
     gen = torch.Generator(device=cuda).manual_seed(Z * L + n)
     C, B = (torch.randn((Z, L, g, n), generator=gen, device=cuda).to(dtype)
@@ -273,12 +278,46 @@ def test_ssd_kernel_matches_plain(cuda, case, dtype):
     la = -torch.cumsum(torch.nn.functional.softplus(
         torch.randn((Z, L, h), generator=gen, device=cuda)), dim=1)
     xdt = torch.randn((Z, L, h, p), generator=gen, device=cuda).to(dtype)
+    return C, B, la, xdt
+
+
+def _assert_ssd_matches_plain(C, B, la, xdt):
     before = k4.launches
     y, st = k4.ssd_intra_chunk(C, B, la, xdt)
     assert k4.launches == before + 1
     y_p, st_p = k4.ssd_intra_chunk_plain(C, B, la, xdt)
     torch.testing.assert_close(y, y_p, atol=1e-4, rtol=0)
     torch.testing.assert_close(st, st_p, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    _assert_ssd_matches_plain(*_ssd_inputs(case, dtype, cuda))
+
+
+@pytest.mark.parametrize("case", [(64, 32, 1, 64, 128, 64),
+                                  (3, 37, 1, 4, 128, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_misaligned_xdt(cuda, case, dtype):
+    """A contiguous xdt view one element past a 16-byte boundary takes the
+    scalar copies; the result is the same function."""
+    C, B, la, xdt = _ssd_inputs(case, dtype, cuda)
+    base = torch.empty(xdt.numel() + 1, dtype=dtype, device=cuda)
+    odd = base[1:].view(xdt.shape)
+    odd.copy_(xdt)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 != 0
+    _assert_ssd_matches_plain(C, B, la, odd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_is_bitwise_repeatable(cuda, dtype):
+    """Two calls on the same inputs give equal bits (no atomics, a
+    summation order fixed by the shapes), at path A's shape cut to Z = 64."""
+    args = _ssd_inputs((64, 32, 1, 64, 128, 64), dtype, cuda)
+    one = k4.ssd_intra_chunk(*args)
+    two = k4.ssd_intra_chunk(*args)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
@@ -295,3 +334,8 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
                            torch.zeros(1, 8, 1, 16, device=cuda),
                            torch.zeros(1, 8, 1, device=cuda),
                            torch.zeros(1, 8, 1, 320, device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):
+        k4.ssd_intra_chunk(torch.zeros(1, 256, 1, 256, device=cuda),
+                           torch.zeros(1, 256, 1, 256, device=cuda),
+                           torch.zeros(1, 256, 1, device=cuda),
+                           torch.zeros(1, 256, 1, 64, device=cuda))
