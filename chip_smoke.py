@@ -21,9 +21,11 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    against its own byte bound, and kernel, plain and ``torch.mv`` times
    in the engine's mode;
 5. the flash-attention kernel (K3) against its plain version: every case
-   of the JAX package's tests/test_kernels.py in float32 (atol 2e-5) and
-   bfloat16 (2e-2), and the decoder path's shape; kernel, plain and
-   ``scaled_dot_product_attention`` times;
+   of the JAX package's tests/test_kernels.py, the kernel's edges (GQA 8,
+   several query tiles, head dims 13, 80, 96 and 192) and the decoder
+   path's shape, in float32 (atol 2e-5) and bfloat16 (2e-2), two calls
+   bit-equal; kernel, plain and ``scaled_dot_product_attention`` times at
+   the decoder path's shape and at lm-100m's full 512-token context;
 6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
    package's test shapes, the kernel's edges and the SSM path's shape
    (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
@@ -441,7 +443,10 @@ def check_aggregation_narrow_tree(torch, k2, tree_leaves, tree_map, tree, w,
     return worst
 
 
-# the JAX package's tests/test_kernels.py attention cases:
+# the JAX package's tests/test_kernels.py attention cases, then the port's
+# own edges: GQA 8 with a window, several query tiles with Skv != Sq, the
+# generic instantiation (d 13: 52-byte rows, scalar loads; d 80) and the
+# MLA widths 96 and 192:
 # B, Sq, Skv, H, Hkv, d, causal, window, softcap
 ATTN_CASES = [
     (2, 64, 64, 4, 2, 64, True, None, None),
@@ -450,9 +455,17 @@ ATTN_CASES = [
     (2, 1, 80, 4, 4, 64, True, None, None),
     (1, 64, 72, 4, 2, 64, False, None, None),
     (1, 33, 47, 2, 2, 256, True, None, None),
+    (1, 40, 40, 8, 1, 64, True, 16, None),
+    (1, 100, 130, 4, 2, 64, True, None, None),
+    (1, 37, 45, 4, 2, 13, True, None, None),
+    (1, 70, 100, 4, 1, 80, True, None, None),
+    (1, 50, 50, 4, 2, 96, True, None, None),
+    (1, 50, 50, 4, 2, 192, True, None, 30.0),
 ]
 # path B's MC-scoring call: 8 devices x T=4 x W=32 sequences of 32 tokens
 PATH_B_ATTN = (1024, 32, 32, 10, 5, 64, True, None, None)
+# lm-100m at its full context (max_seq_len 512): 64 sequences of 512 tokens
+LONG_ATTN = (64, 512, 512, 10, 5, 64, True, None, None)
 
 
 def causal_pairs(Sq, Skv, causal, window, q_offset):
@@ -466,8 +479,22 @@ def causal_pairs(Sq, Skv, causal, window, q_offset):
     return n
 
 
+def attn_bound(B, Sq, Skv, H, Hkv, d):
+    """K3's bound at one float32 causal shape: q, k, v read once, o written
+    once; 4·d operations a kept (query, key) pair.  Returns (bound ms,
+    bytes, flops, bound_by)."""
+    nbytes = 4 * (2 * B * Sq * H * d + 2 * B * Skv * Hkv * d)
+    flops = 4 * d * B * H * causal_pairs(Sq, Skv, True, None, 0)
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+          else "operations")
+    return bound_ms(nbytes, flops), nbytes, flops, by
+
+
 def check_flash_attention_kernel(torch, k3):
-    """Phase 5: K3 vs its plain version; returns the kernels-line entry."""
+    """Phase 5: K3 vs its plain version, two calls bit-equal; kernel,
+    plain and ``scaled_dot_product_attention`` times at path B's shape and
+    at 512 tokens.  Returns the kernels-line entry (path B's numbers, both
+    shapes under "shapes")."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
@@ -482,40 +509,49 @@ def check_flash_attention_kernel(torch, k3):
         got = k3.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = max_err(torch, [got], [k3.flash_attention_plain(q, k, v, **kw)])
+        if not torch.equal(got, k3.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"K3 {case} {dtype}: two calls differ")
         tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-        print(f"  K3 {case} {str(dtype)[6:]}: max_abs_err {err:.3e}")
+        print(f"  K3 {case} {str(dtype)[6:]}: max_abs_err {err:.3e}, two "
+              f"calls bit-equal")
         if not err <= tol:
             raise AssertionError(f"K3 {case} {dtype}: max_abs_err {err} > "
                                  f"{tol}")
         if dtype == torch.float32:
             worst = max(worst, err)
 
-    B, Sq, Skv, H, Hkv, d = PATH_B_ATTN[:6]
-    q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
-    k, v = (torch.randn((B, Skv, Hkv, d), generator=gen, device="cuda")
-            for _ in range(2))
-    ms, how, host = timed(torch, lambda: k3.flash_attention(q, k, v),
-                          "flash_attention_kernel")
-    plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(q, k, v))
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib, _, _ = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True))
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * d * B * H * causal_pairs(Sq, Skv, True, None, 0)
-    bound = bound_ms(nbytes, flops)
-    print(f"  K3 path-B shape q [{B}, {Sq}, {H}, {d}] f32 causal, {how}: "
-          f"kernel {ms:.5f} ms, plain {plain:.5f} ms, "
-          f"scaled_dot_product_attention {lib:.5f} ms, bound {bound:.5f} ms; "
-          f"wrapper per call with host overhead {host:.5f} ms")
+    shapes = []
+    for name, case in (("path B", PATH_B_ATTN), ("512 tokens", LONG_ATTN)):
+        B, Sq, Skv, H, Hkv, d = case[:6]
+        q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
+        k, v = (torch.randn((B, Skv, Hkv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        ms, how, host = timed(torch, lambda: k3.flash_attention(q, k, v),
+                              "flash_attention_kernel")
+        plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(q, k, v))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib, _, _ = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True))
+        bound, nbytes, flops, by = attn_bound(B, Sq, Skv, H, Hkv, d)
+        print(f"  K3 {name} q [{B}, {Sq}, {H}, {d}] f32 causal, {how}: "
+              f"kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+              f"scaled_dot_product_attention {lib:.5f} ms, bound "
+              f"{bound:.5f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.2f} GFLOP; {bound / ms:.3f} of it); wrapper "
+              f"per call with host overhead {host:.5f} ms")
+        shapes.append({"shape": list(case[:6]), "ms": ms, "plain_ms": plain,
+                       "bound_ms": bound, "bound_by": by, "library_ms": lib})
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:82",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= flops / FP32_FLOPS else "operations",
-            "library_ms": lib}
+            "max_abs_err": worst, "ms": shapes[0]["ms"],
+            "plain_ms": shapes[0]["plain_ms"],
+            "bound_ms": shapes[0]["bound_ms"],
+            "bound_by": shapes[0]["bound_by"],
+            "library_ms": shapes[0]["library_ms"], "shapes": shapes}
 
 
 # (Z, L, g, h, n, p): the JAX package's tests/test_kernels.py shapes
@@ -782,7 +818,8 @@ def main() -> int:
     print(f"  built {secs} in {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"  {name}: {line.strip()}")
 
     configs = lm_path_configs(torch, fed)

@@ -423,6 +423,9 @@ ATTN_CASES = [
     (2, 1, 80, 4, 4, 64, True, None, None),       # decode-like single query
     (1, 64, 72, 4, 2, 64, False, None, None),     # non-causal
     (1, 33, 47, 2, 2, 256, True, None, None),     # ragged, big head_dim
+    # MLA widths (qk_nope + qk_rope): minicpm3-4b's 96, deepseek-v2's 192
+    (1, 24, 24, 4, 2, 96, True, None, None),
+    (1, 20, 28, 2, 1, 192, True, 8, None),
 ]
 
 
@@ -451,6 +454,57 @@ def test_flash_attention_plain_matches_pallas_and_oracle(case, dtype):
     kern = ops.flash_attention(q, k, v, block_q=64, block_kv=64,
                                interpret=True, **kw)
     np.testing.assert_allclose(got, np.asarray(kern, np.float32), atol=tol)
+
+
+# B, Sq, Skv, H, Hkv, d, itemsize -> rows, heads, blocks, threads, smem,
+# flags
+PLAN_CASES = [
+    ((1024, 32, 32, 10, 5, 64, 4), (32, 2, 5120, 128, 45824, 15)),  # path B
+    ((64, 512, 512, 10, 5, 64, 4), (32, 2, 5120, 128, 63232, 15)),  # 512
+    ((1, 100, 100, 8, 1, 64, 4), (8, 8, 13, 128, 63232, 15)),       # GQA 8
+    ((1, 5, 9, 130, 1, 8, 4), (1, 64, 15, 256, 29440, 15)),         # slices
+    ((2, 40, 40, 4, 2, 96, 2), (32, 2, 8, 128, 87808, 15)),
+    ((2, 40, 40, 4, 2, 192, 4), (32, 2, 8, 256, 161536, 15)),
+    ((1, 37, 45, 4, 2, 13, 4), (32, 2, 4, 256, 38656, 0)),     # 52-byte rows
+    ((1, 37, 45, 4, 2, 12, 2), (32, 2, 4, 256, 38656, 0)),     # 24-byte rows
+    ((1, 37, 45, 4, 2, 16, 2), (32, 2, 4, 256, 38656, 15)),
+    ((1, 8, 8, 2, 2, 256, 4), (8, 1, 2, 256, 144128, 15)),    # 1 kv stage
+    ((1, 8, 300, 2, 2, 256, 4), (8, 1, 2, 256, 210688, 15)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES)
+def test_flash_attention_launch_plan(args, want):
+    """K3's launch plan: a block owns a whole GQA group (at most 64 heads,
+    else head slices) and at most 64 query rows over its heads; one kv
+    stage when Skv fits one tile; 16-byte pieces only for rows that are
+    whole 16-byte pieces."""
+    plan = k3.launch_plan(*args)
+    assert (plan.rows, plan.heads, plan.blocks, plan.threads, plan.smem,
+            plan.flags) == want
+    assert plan.rows * plan.heads <= k3.BLOCK_ROWS and plan.smem <= 232448
+
+
+def test_flash_attention_launch_plan_flags_follow_alignment():
+    """A contiguous view at a storage offset of one element starts off 16
+    bytes: that tensor takes the kernel's scalar path."""
+    base = torch.zeros(1 + 2 * 8 * 4 * 64)
+    aligned = base[:-1].view(2, 8, 4, 64)
+    off = base[1:].view(2, 8, 4, 64)
+    ptrs = lambda *ts: tuple(t.data_ptr() % 16 == 0 for t in ts)
+    assert k3.launch_plan(2, 8, 8, 4, 4, 64, 4, ptrs(
+        aligned, off, aligned, aligned)).flags == (k3.VEC_Q | k3.VEC_V
+                                                   | k3.VEC_O)
+    assert k3.launch_plan(2, 8, 8, 4, 4, 64, 4, ptrs(
+        off, off, off, aligned)).flags == k3.VEC_O
+
+
+@pytest.mark.parametrize("d", [0, 257, 512])
+def test_flash_attention_launch_plan_refuses_head_dim(d):
+    """The kernel takes head dims 1 to 256; a larger one raises a
+    ValueError that names the limit (no repo config reaches it)."""
+    with pytest.raises(ValueError, match="head_dim 1 to 256"):
+        k3.launch_plan(1, 4, 4, 2, 2, d, 4)
 
 
 def test_flash_attention_plain_row_without_keys_is_zero():

@@ -223,6 +223,22 @@ ATTN_CASES = [
     (1, 33, 47, 2, 2, 256, True, None, None, 14),
     (64, 32, 32, 10, 5, 64, True, None, None, 0),     # the decoder path
     (1, 40, 40, 2, 1, 64, True, 7, 30.0, -5),         # rows without keys
+    # GQA ratios 1, 2, 4 and 8 in one query tile (Sq <= 64)
+    (2, 48, 48, 4, 4, 64, True, None, None, 0),
+    (2, 48, 48, 8, 4, 64, True, None, None, 0),
+    (1, 48, 48, 8, 2, 64, True, None, None, 0),
+    (1, 40, 40, 8, 1, 64, True, 16, None, 0),
+    # several query tiles (Sq > 64) with Skv != Sq
+    (1, 100, 130, 4, 2, 64, True, None, None, 30),
+    (1, 150, 90, 4, 1, 128, False, None, None, 0),
+    # the generic instantiation (16, 80; 13: 52-byte rows, scalar loads)
+    # and the MLA widths 96 and 192
+    (1, 40, 40, 4, 2, 16, True, None, None, 0),
+    (1, 70, 100, 4, 1, 80, True, None, None, 30),
+    (1, 50, 50, 4, 2, 96, True, None, None, 0),
+    (1, 50, 50, 4, 2, 192, True, None, 30.0, 0),
+    (1, 37, 45, 4, 2, 13, True, None, None, 8),
+    (2, 512, 512, 10, 5, 64, True, None, None, 0),    # lm-100m, 512 tokens
 ]
 
 
@@ -243,8 +259,54 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+def _off16(shape, gen, dtype, device):
+    """A contiguous view at a storage offset of one element: its base
+    pointer is off 16 bytes."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = torch.randn(n + 1, generator=gen, device=device).to(dtype)
+    return buf[1:].view(shape)
+
+
+@pytest.mark.parametrize("d", [64, 96, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_scalar_path_off_16_bytes(cuda, d, dtype):
+    """q, k and v off 16 bytes take the kernel's scalar loads; o (a fresh
+    tensor) keeps its 16-byte stores where its rows allow."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    q = _off16((2, 40, 4, d), gen, dtype, cuda)
+    k, v = (_off16((2, 56, 2, d), gen, dtype, cuda) for _ in range(2))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    plan = k3.launch_plan(2, 40, 56, 4, 2, d, q.element_size(),
+                          (False, False, False, True))
+    assert plan.flags & (k3.VEC_Q | k3.VEC_K | k3.VEC_V) == 0
+    kw = dict(causal=True, window=None, softcap=None, q_offset=16)
+    got = k3.flash_attention(q, k, v, **kw)
+    want = k3.flash_attention_plain(q, k, v, **kw)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("case", [ATTN_CASES[6], ATTN_CASES[7],
+                                  ATTN_CASES[-2], ATTN_CASES[-1]])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_is_bitwise_repeatable(cuda, case, dtype):
+    """Two calls on the same inputs give the same bits: sums run in a
+    fixed order, with no atomics."""
+    B, Sq, Skv, H, Hkv, d, causal, window, softcap, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((B, Sq, H, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    first = k3.flash_attention(q, k, v, **kw)
+    for _ in range(2):
+        assert torch.equal(first, k3.flash_attention(q, k, v, **kw))
+
+
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.zeros(1, 4, 2, 32, device=cuda)
+    q = torch.zeros(1, 4, 2, 257, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         k3.flash_attention(q, q, q)
     q = torch.zeros(1, 4, 2, 64, device=cuda)
