@@ -10,9 +10,12 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
    started together) into ``build/repro_torch/``;
 3. the acquisition-score kernel (K1) against its plain PyTorch version at
-   the main-path shapes, a ragged N, C = 257 and bfloat16 input (atol
-   1e-5), and at the LM fleet's vocabularies C = 32768 and 50288 (atol
-   1e-4: entropies near 10 summed over 5e4 classes in another order);
+   the LeNet paths' shapes, a ragged N, C = 257 and bfloat16 input (atol
+   1e-5), at the LM fleet's vocabularies C = 32768 and 50288 in float32
+   and bfloat16, one device's rows at C = 50288 and the ragged C = 50287
+   (atol 1e-4: entropies near 10 summed over 5e4 classes in another
+   order), and C = 4099 (1e-5); two calls bit-equal in every case; the
+   LM cases' times beside their byte bound;
 4. the fused-aggregation kernel (K2) against its plain version: D = 256
    devices × the 61,706 LeNet parameters, flat preweighted (the engine's
    mode), plus every other mode (atol 1e-5), and D = 8 copies of the two
@@ -49,7 +52,10 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 Kernel times are device times from ``torch.profiler`` (CUDA activity):
 the kernel's own time for ``ms``, every kernel of the call for
 ``plain_ms`` and ``library_ms``.  Host-inclusive times per call (CUDA
-events around back-to-back calls) are printed beside them.
+events around back-to-back calls) are printed beside them.  Each timed
+entry of the kernels line says in ``how`` which of the two its ``ms`` is:
+when two profiles in a row see no device time for the kernel, ``ms`` is
+the host-inclusive time.
 
 Kernel launch counters are set to 0 just before each main path and read
 just after; a main path that does not reach a kernel it should is a
@@ -117,10 +123,14 @@ def timed(torch, fn, match: str = ""):
     """``(ms, how, host_ms)``: the device time of the kernels named
     ``match`` (all kernels when ``match`` is empty) per call, from the
     profiler, and the host-inclusive time per call from CUDA events.  Falls
-    back to the events when the profiler sees no device time."""
+    back to the events, and says so in ``how``, when two profiles in a row
+    see no device time."""
     host = time_ms(torch, fn)
-    dev = device_ms(torch, fn, match)
-    if dev is None or (match and dev[1] <= 0.0):
+    for _ in range(2):
+        dev = device_ms(torch, fn, match)
+        if dev is not None and (not match or dev[1] > 0.0):
+            break
+    else:
         return host, "events (host-inclusive)", host
     return (dev[1] if match else dev[0]), "profiler (device)", host
 
@@ -154,56 +164,119 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def k1_inputs(torch, gen, shape, dtype=None):
+    """MC log-probs of ``shape``: log_softmax of 3·normal logits."""
+    x = 3 * torch.randn(shape, generator=gen, device="cuda")
+    return torch.log_softmax(x, dim=-1).to(dtype or torch.float32)
+
+
+def check_k1_case(torch, k1, name, lp, tol):
+    """K1 against plain on one input, and two calls bit-equal; returns the
+    error."""
+    got = k1.acquisition_scores(lp)
+    torch.cuda.synchronize()
+    err = max_err(torch, got, k1.acquisition_scores_plain(lp))
+    again = k1.acquisition_scores(lp)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K1 {name}: two calls differ")
+    T, C = lp.shape[-3], lp.shape[-1]
+    rows = lp.numel() // (T * C)
+    plan = k1.launch_plan(rows, T, C, lp.dtype, lp.data_ptr() % 16 == 0)
+    blocks = (rows * plan.slices if plan.mode == "split"
+              else -(-rows // (plan.threads // 32)))
+    print(f"  K1 {name}: {plan.mode}, {plan.slices} slice(s), vec "
+          f"{plan.vec}, {blocks} blocks; max_abs_err {err:.3e}, two "
+          f"calls bit-equal")
+    if not err <= tol:
+        raise AssertionError(f"K1 {name}: max_abs_err {err} > {tol}")
+    return err
+
+
+def k1_bound_ms(lp) -> float:
+    """K1's bound: the log-probs read once at their width, three float32
+    outputs a row written once; ~4 operations an element."""
+    rows = lp.numel() // (lp.shape[-3] * lp.shape[-1])
+    return bound_ms(lp.numel() * lp.element_size() + 3 * rows * 4,
+                    4 * lp.numel())
+
+
 def check_acquisition_kernel(torch, k1):
-    """Phase 3: K1 vs its plain version at the LeNet paths' shapes; returns
-    the kernels-line entry."""
+    """Phase 3: K1 vs its plain version at the LeNet paths' shapes (the warp
+    mode), two calls bit-equal; returns the kernels-line entry."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def logprobs(shape, dtype=torch.float32):
-        x = 3 * torch.randn(shape, generator=gen, device="cuda")
-        return torch.log_softmax(x, dim=-1).to(dtype).contiguous()
-
     cases = {
-        "paper [D=4, T=16, W=200, C=10]": logprobs((4, 16, 200, 10)),
-        "paper folded [T=16, N=800, C=10]": logprobs((16, 800, 10)),
-        "massive [D=256, T=4, W=32, C=10]": logprobs((256, 4, 32, 10)),
-        "ragged [T=8, N=333, C=10]": logprobs((8, 333, 10)),
-        "wide [T=16, N=128, C=257]": logprobs((16, 128, 257)),
-        "bf16 [D=4, T=16, W=200, C=10]": logprobs((4, 16, 200, 10),
-                                                 torch.bfloat16),
+        "paper [D=4, T=16, W=200, C=10]": k1_inputs(torch, gen,
+                                                    (4, 16, 200, 10)),
+        "paper folded [T=16, N=800, C=10]": k1_inputs(torch, gen,
+                                                      (16, 800, 10)),
+        "massive [D=256, T=4, W=32, C=10]": k1_inputs(torch, gen,
+                                                      (256, 4, 32, 10)),
+        "ragged [T=8, N=333, C=10]": k1_inputs(torch, gen, (8, 333, 10)),
+        "wide [T=16, N=128, C=257]": k1_inputs(torch, gen, (16, 128, 257)),
+        "bf16 [D=4, T=16, W=200, C=10]": k1_inputs(
+            torch, gen, (4, 16, 200, 10), torch.bfloat16),
     }
-    worst = 0.0
-    for name, lp in cases.items():
-        got = k1.acquisition_scores(lp)
-        torch.cuda.synchronize()
-        err = max_err(torch, got, k1.acquisition_scores_plain(lp))
-        print(f"  K1 {name}: max_abs_err {err:.3e}")
-        if not err <= 1e-5:
-            raise AssertionError(f"K1 {name}: max_abs_err {err} > 1e-5")
-        worst = max(worst, err)
-
-    lp = cases["paper [D=4, T=16, W=200, C=10]"]
-    D, T, W, C = lp.shape
-    ms, how, host = timed(torch, lambda: k1.acquisition_scores(lp),
-                          "acquisition_scores_kernel")
-    plain, _, plain_host = timed(
-        torch, lambda: k1.acquisition_scores_plain(lp))
-    bound = bound_ms(lp.numel() * 4 + 3 * D * W * 4, 4 * lp.numel())
-    lpm = cases["massive [D=256, T=4, W=32, C=10]"]
-    ms_m, _, host_m = timed(torch, lambda: k1.acquisition_scores(lpm),
-                            "acquisition_scores_kernel")
-    plain_m, _, _ = timed(torch, lambda: k1.acquisition_scores_plain(lpm))
-    bound_m = bound_ms(lpm.numel() * 4 + 3 * 256 * 32 * 4, 4 * lpm.numel())
-    print(f"  K1 paper shape, {how}: kernel {ms:.5f} ms, plain {plain:.5f} "
-          f"ms, bound {bound:.5f} ms; per call with host overhead: wrapper "
-          f"{host:.5f} ms, plain {plain_host:.5f} ms")
-    print(f"  K1 massive shape: kernel {ms_m:.5f} ms, plain {plain_m:.5f} "
-          f"ms, bound {bound_m:.5f} ms, wrapper per call {host_m:.5f} ms")
+    worst = max(check_k1_case(torch, k1, name, lp, 1e-5)
+                for name, lp in cases.items())
+    shapes = []
+    for name in ("paper [D=4, T=16, W=200, C=10]",
+                 "massive [D=256, T=4, W=32, C=10]"):
+        lp = cases[name]
+        ms, how, host = timed(torch, lambda: k1.acquisition_scores(lp),
+                              "acquisition_scores_kernel")
+        plain, _, plain_host = timed(
+            torch, lambda: k1.acquisition_scores_plain(lp))
+        bound = k1_bound_ms(lp)
+        print(f"  K1 {name}, {how}: kernel {ms:.5f} ms, plain {plain:.5f} "
+              f"ms, bound {bound:.5f} ms; per call with host overhead: "
+              f"wrapper {host:.5f} ms, plain {plain_host:.5f} ms")
+        shapes.append({"shape": list(lp.shape), "ms": ms, "how": how,
+                       "plain_ms": plain, "bound_ms": bound})
     return {"name": "acquisition_scores", "route": "cuda",
             "source": "src/repro_torch/csrc/acquisition_scores.cu",
             "replaces": "src/repro/kernels/acquisition_scores.py:49",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": None}
+            "max_abs_err": worst, "ms": shapes[0]["ms"],
+            "how": shapes[0]["how"], "plain_ms": shapes[0]["plain_ms"],
+            "bound_ms": shapes[0]["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "shapes": shapes}
+
+
+# phase 3, LM widths: the fused LM rounds' MC scoring call [D=8, T=4, W=32,
+# C] at both vocabularies, one device of it (fewer rows, so more slices a
+# row), and class counts that take scalar loads
+K1_LM_CASES = [("path B", (8, 4, 32, 32768), "float32"),
+               ("path B", (8, 4, 32, 32768), "bfloat16"),
+               ("path A", (8, 4, 32, 50288), "float32"),
+               ("path A", (8, 4, 32, 50288), "bfloat16"),
+               ("one device", (4, 32, 50288), "float32"),
+               ("ragged", (8, 4, 32, 50287), "float32"),
+               ("ragged", (4, 32, 4099), "float32"),
+               ("ragged", (4, 32, 4099), "bfloat16")]
+
+
+def check_acquisition_lm_widths(torch, k1):
+    """Phase 3, LM widths: K1 against plain (atol 1e-4 from C = 32768 on:
+    entropies near 10 summed over 3e4-5e4 classes in another order; 1e-5
+    below), two calls bit-equal, kernel and plain time and the share of
+    the byte bound.  Returns (worst error, times per case)."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst, times = 0.0, {}
+    for what, shape, dtype in K1_LM_CASES:
+        name = f"{what} {list(shape)} {dtype}"
+        lp = k1_inputs(torch, gen, shape, getattr(torch, dtype))
+        tol = 1e-4 if shape[-1] >= 32768 else 1e-5
+        worst = max(worst, check_k1_case(torch, k1, name, lp, tol))
+        ms, how, _ = timed(torch, lambda: k1.acquisition_scores(lp),
+                           "acquisition_scores_kernel")
+        plain, _, _ = timed(torch, lambda: k1.acquisition_scores_plain(lp))
+        bound = k1_bound_ms(lp)
+        print(f"  K1 {name}, {how}: kernel {ms:.5f} ms ({bound / ms:.3f} of "
+              f"the {bound:.5f} ms byte bound), plain {plain:.5f} ms")
+        times[name] = {"shape": list(shape), "dtype": dtype, "ms": ms,
+                       "how": how, "plain_ms": plain, "bound_ms": bound}
+        del lp
+        torch.cuda.empty_cache()
+    return worst, times
 
 
 def lenet_tree(torch, D, gen):
@@ -314,32 +387,8 @@ def check_aggregation_kernel(torch, k2, tree_leaves):
             "source": "src/repro_torch/csrc/fused_aggregation.cu",
             "replaces": "src/repro/kernels/fused_aggregation.py:109",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib}
-
-
-def check_acquisition_lm_widths(torch, k1):
-    """Phase 3, LM widths: K1 at the two LM vocabularies, [D=8, T=4, W=32,
-    C] (the fused LM rounds' MC scoring).  Returns (worst error, times)."""
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    worst, times = 0.0, {}
-    for C in (32768, 50288):
-        lp = torch.log_softmax(3 * torch.randn((8, 4, 32, C), generator=gen,
-                                               device="cuda"), dim=-1)
-        got = k1.acquisition_scores(lp)
-        torch.cuda.synchronize()
-        err = max_err(torch, got, k1.acquisition_scores_plain(lp))
-        if not err <= 1e-4:
-            raise AssertionError(f"K1 C={C}: max_abs_err {err} > 1e-4")
-        ms, how, _ = timed(torch, lambda: k1.acquisition_scores(lp),
-                           "acquisition_scores_kernel")
-        plain, _, _ = timed(torch, lambda: k1.acquisition_scores_plain(lp))
-        bound = bound_ms(lp.numel() * 4 + 3 * 8 * 32 * 4, 4 * lp.numel())
-        print(f"  K1 LM [D=8, T=4, W=32, C={C}]: max_abs_err {err:.3e}; "
-              f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, bound "
-              f"{bound:.5f} ms")
-        worst = max(worst, err)
-        times[C] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
-    return worst, times
+            "how": how, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib}
 
 
 def lm_path_configs(torch, fed):
@@ -540,15 +589,16 @@ def check_flash_attention_kernel(torch, k3):
               f"{bound:.5f} ms by {by} ({nbytes / 1e9:.4f} GB, "
               f"{flops / 1e9:.2f} GFLOP; {bound / ms:.3f} of it); wrapper "
               f"per call with host overhead {host:.5f} ms")
-        shapes.append({"shape": list(case[:6]), "ms": ms, "plain_ms": plain,
-                       "bound_ms": bound, "bound_by": by, "library_ms": lib})
+        shapes.append({"shape": list(case[:6]), "ms": ms, "how": how,
+                       "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                       "library_ms": lib})
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:82",
             "max_abs_err": worst, "ms": shapes[0]["ms"],
-            "plain_ms": shapes[0]["plain_ms"],
+            "how": shapes[0]["how"], "plain_ms": shapes[0]["plain_ms"],
             "bound_ms": shapes[0]["bound_ms"],
             "bound_by": shapes[0]["bound_by"],
             "library_ms": shapes[0]["library_ms"], "shapes": shapes}
@@ -630,15 +680,15 @@ def check_ssd_kernel(torch, k4):
               f"{by} ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP; "
               f"{bound / ms:.3f} of it); wrapper per call with host "
               f"overhead {host:.5f} ms")
-        shapes.append({"shape": list(shape), "ms": ms, "plain_ms": plain,
-                       "bound_ms": bound, "bound_by": by})
+        shapes.append({"shape": list(shape), "ms": ms, "how": how,
+                       "plain_ms": plain, "bound_ms": bound, "bound_by": by})
         del args
         torch.cuda.empty_cache()
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/csrc/ssd_intra_chunk.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:50",
             "max_abs_err": worst, "ms": shapes[0]["ms"],
-            "plain_ms": shapes[0]["plain_ms"],
+            "how": shapes[0]["how"], "plain_ms": shapes[0]["plain_ms"],
             "bound_ms": shapes[0]["bound_ms"],
             "bound_by": shapes[0]["bound_by"], "library_ms": None,
             "shapes": shapes}
@@ -827,6 +877,7 @@ def main() -> int:
     k1_entry = check_acquisition_kernel(torch, k1)
     err, k1_lm = check_acquisition_lm_widths(torch, k1)
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err)
+    k1_entry["shapes"] += [{"case": name, **t} for name, t in k1_lm.items()]
     print("phase 4: fused-aggregation kernel (K2) vs plain")
     k2_entry = check_aggregation_kernel(torch, k2, tree_leaves)
     err, k2_lm = check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map,
@@ -942,7 +993,7 @@ def main() -> int:
                       "lm_s": lm_walls, "paper_launches": paper_launches,
                       "massive_launches": massive_launches,
                       "lm_launches": lm_launches,
-                      "k1_lm_widths": k1_lm, "k2_lm_trees": k2_lm,
+                      "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")
     print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry, k4_entry]}))

@@ -66,6 +66,60 @@ def test_acquisition_plain_matches_pallas_and_oracle(T, N, C, dtype):
         np.testing.assert_allclose(g.numpy(), np.asarray(o), atol=1e-5)
 
 
+@pytest.mark.parametrize("T,N,C", [(2, 3, 4099), (4, 2, 50287)])
+def test_acquisition_plain_matches_oracle_at_wide_ragged_c(T, N, C):
+    """At class counts the split mode takes, not a multiple of 4 (the
+    kernel's scalar loads): plain vs ``ref.acquisition_scores_ref``."""
+    lp = _logprobs(T, N, C, "float32")
+    got = k1.acquisition_scores(torch.from_numpy(lp))
+    want = jax.jit(ref.acquisition_scores_ref)(jnp.asarray(lp))
+    for g, o in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(o), atol=1e-5)
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# rows (devices x N), T, C, dtype, aligned -> mode, slices, threads, vec
+K1_PLAN_CASES = [
+    ((800, 16, 10, F32, True), ("warp", 1, 256, 1)),       # paper
+    ((8192, 4, 10, F32, True), ("warp", 1, 256, 1)),       # massive
+    ((128, 16, 257, F32, True), ("warp", 1, 256, 1)),
+    ((256, 4, 50288, F32, True), ("split", 2, 256, 4)),    # path A
+    ((256, 4, 32768, F32, True), ("split", 2, 256, 4)),    # path B
+    ((256, 4, 50288, BF16, True), ("split", 2, 256, 8)),
+    ((32, 4, 50288, F32, True), ("split", 8, 256, 4)),     # 1 device
+    ((100, 4, 50288, F32, True), ("split", 4, 256, 4)),
+    ((256, 4, 50287, F32, True), ("split", 2, 256, 1)),    # ragged
+    ((256, 4, 50284, BF16, True), ("split", 2, 256, 1)),   # C % 8 = 4
+    ((256, 4, 50288, F32, False), ("split", 2, 256, 1)),   # off 16 B
+    ((32, 4, 4099, F32, True), ("split", 2, 256, 1)),      # slice >= 2K
+    ((8, 4, 3000, F32, True), ("split", 1, 256, 4)),
+    ((600, 4, 2048, BF16, True), ("split", 1, 256, 8)),    # > 1 wave
+]
+
+
+@pytest.mark.parametrize("args,want", K1_PLAN_CASES)
+def test_acquisition_launch_plan(args, want):
+    """K1's plan: a warp per row below 1024 classes; above, the most class
+    slices (1, 2, 4, 8) whose blocks run in one wave of 4 a SM, no slice
+    under 2048 classes; 16-byte loads only where C and the start allow."""
+    plan = k1.launch_plan(*args)
+    assert (plan.mode, plan.slices, plan.threads, plan.vec) == want
+    if plan.mode == "split" and plan.slices > 1:
+        assert args[2] // plan.slices >= k1.MIN_SLICE
+        assert args[0] * plan.slices <= k1.RESIDENT_BLOCKS
+
+
+@pytest.mark.parametrize("args,err", [
+    ((256, 4, 50288, torch.float16), TypeError),
+    ((256, 4, 50288, torch.float64), TypeError),
+    ((256, 0, 50288, F32), ValueError),
+    ((256, 4, 0, F32), ValueError),
+])
+def test_acquisition_launch_plan_refuses(args, err):
+    with pytest.raises(err):
+        k1.launch_plan(*args)
+
+
 def test_acquisition_plain_folds_devices_into_rows():
     lp = np.stack([_logprobs(4, 30, 10, "float32"),
                    _logprobs(4, 30, 11, "float32")[..., :10]])

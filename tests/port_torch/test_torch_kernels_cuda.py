@@ -7,7 +7,9 @@ no CPU mode) and run on the card with
 
 This file imports no JAX, so it runs on a machine that has only the port's
 dependencies.  Tolerances: 1e-5 absolute in float32 for K1 and K2
-(summation order differs from the plain version, nothing else); K3 2e-5
+(summation order differs from the plain version, nothing else), and 1e-4
+for K1 from C = 32768 classes on (entropies near 10 summed over tens of
+thousands of classes in another order); K3 2e-5
 in float32 and 2e-2 in bfloat16, K4 1e-4 (the JAX package's bars for the
 kernels they replace).
 """
@@ -44,6 +46,82 @@ def test_acquisition_kernel_matches_plain(cuda, shape, dtype):
     for g, w in zip(got, k1.acquisition_scores_plain(lp)):
         assert g.shape == w.shape and g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+def _k1_input(shape, dtype, cuda):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    return torch.log_softmax(3 * torch.randn(shape, generator=gen,
+                                             device=cuda), dim=-1).to(dtype)
+
+
+def _k1_rows(shape):
+    return (shape[0] if len(shape) == 4 else 1) * shape[-2]
+
+
+# the LM fleet's scoring call at both vocabularies, one device of it (fewer
+# rows: eight slices), and C that takes scalar loads
+K1_LM_SHAPES = [(8, 4, 32, 32768), (8, 4, 32, 50288), (4, 32, 50288),
+                (8, 4, 32, 50287), (4, 32, 4099)]
+
+
+@pytest.mark.parametrize("shape", K1_LM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_acquisition_kernel_matches_plain_at_lm_widths(cuda, shape, dtype):
+    """The split mode against plain: atol 1e-4 from C = 32768 on (entropies
+    near 10 summed over 3e4-5e4 classes in another order), 1e-5 below."""
+    lp = _k1_input(shape, dtype, cuda)
+    assert k1.launch_plan(_k1_rows(shape), shape[-3], shape[-1], dtype,
+                          True).mode == "split"
+    before = k1.launches
+    got = k1.acquisition_scores(lp)
+    assert k1.launches == before + 1
+    tol = 1e-4 if shape[-1] >= 32768 else 1e-5
+    for g, w in zip(got, k1.acquisition_scores_plain(lp)):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+# one shape for each number of class slices the plan picks
+K1_SLICE_SHAPES = {1: (4, 600, 2048), 2: (8, 4, 32, 32768),
+                   4: (4, 100, 50288), 8: (4, 32, 50288)}
+
+
+@pytest.mark.parametrize("slices", sorted(K1_SLICE_SHAPES))
+def test_acquisition_kernel_each_slice_count(cuda, slices):
+    shape = K1_SLICE_SHAPES[slices]
+    assert k1.launch_plan(_k1_rows(shape), shape[-3], shape[-1],
+                          torch.float32, True).slices == slices
+    lp = _k1_input(shape, torch.float32, cuda)
+    tol = 1e-4 if shape[-1] >= 32768 else 1e-5
+    for g, w in zip(k1.acquisition_scores(lp),
+                    k1.acquisition_scores_plain(lp)):
+        torch.testing.assert_close(g, w, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 16, 200, 10), (256, 4, 32, 10),
+                                   (8, 4, 32, 50288), (4, 32, 50288),
+                                   (8, 4, 32, 50287)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_acquisition_kernel_is_bitwise_repeatable(cuda, shape, dtype):
+    """Two calls on the same input give equal bits in both modes: no
+    atomics, and the slices of a row are added in rank order."""
+    lp = _k1_input(shape, dtype, cuda)
+    one, two = k1.acquisition_scores(lp), k1.acquisition_scores(lp)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
+
+
+def test_acquisition_kernel_misaligned_input_takes_scalar_loads(cuda):
+    """A contiguous view that starts 4 bytes past 16 takes the scalar path
+    of the split mode."""
+    shape = (8, 4, 32, 50288)
+    aligned = _k1_input(shape, torch.float32, cuda)
+    lp = torch.empty(1 + aligned.numel(), device=cuda)[1:].view(shape)
+    lp.copy_(aligned)
+    assert lp.data_ptr() % 16 != 0
+    for g, w in zip(k1.acquisition_scores(lp),
+                    k1.acquisition_scores_plain(lp)):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
 
 
 def test_acquisition_kernel_rejects_what_it_does_not_take(cuda):
