@@ -10,19 +10,23 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
    started together) into ``build/repro_torch/``;
 3. the acquisition-score kernel (K1) against its plain PyTorch version at
-   the LeNet paths' shapes, a ragged N, C = 257 and bfloat16 input (atol
-   1e-5), at the LM fleet's vocabularies C = 32768 and 50288 in float32
-   and bfloat16, one device's rows at C = 50288 and the ragged C = 50287
+   the LeNet paths' shapes (the classic engine's ``[T=16, W=200, C=10]``
+   and the legacy engine's ``[1, 16, 200, 10]`` among them), a ragged N,
+   C = 257 and bfloat16 input (atol 1e-5), at the LM fleet's
+   vocabularies C = 32768 and 50288 in float32 and bfloat16, one
+   device's rows at C = 50288 and the ragged C = 50287
    (atol 1e-4: entropies near 10 summed over 5e4 classes in another
    order), and C = 4099 (1e-5); two calls bit-equal in every case; the
    LM cases' times beside their byte bound;
 4. the fused-aggregation kernel (K2) against its plain version: D = 256
    devices × the 61,706 LeNet parameters, flat preweighted (the engine's
-   mode), plus every other mode (atol 1e-5), and D = 8 copies of the two
-   LM trees (~129M and ~95M parameters), tree A also in bfloat16 and int8;
-   two calls of each case must give equal bits; each case's kernel time
-   against its own byte bound, and kernel, plain and ``torch.mv`` times
-   in the engine's mode;
+   mode), plus every other mode (atol 1e-5) and the compressed rounds'
+   int8 and bfloat16 payloads in the engine's mode, and D = 8 copies of
+   the two LM trees (~129M and ~95M parameters), tree A also in bfloat16
+   and int8, tree B also in int8 (path B's int8 uploads); two calls of
+   each case must give equal bits; each case's kernel time against its
+   own byte bound, and kernel, plain and ``torch.mv`` times in the
+   engine's mode;
 5. the flash-attention kernel (K3) against its plain version: every case
    of the JAX package's tests/test_kernels.py, the kernel's edges (GQA 8,
    several query tiles, head dims 13, 80, 96 and 192) and the decoder
@@ -34,8 +38,13 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
    path's shape and at the published chunk (L = 256, n 128, p 64);
 7. small RNG-free rounds on the card against the same rounds on the CPU:
-   LeNet (paper round), the reduced SSM LM and a small decoder LM (fused
-   rounds); the CPU port is held against the JAX package by the tests;
+   LeNet (the paper round on the vmap, classic and legacy engines; fused
+   rounds with top-k 0.05 and with a bfloat16 wire, error feedback on:
+   params within 1e-4, the card's residuals bit-equal to its own codec
+   input minus the CPU codec's output, residuals within 1e-5 but at
+   bounded codec splits, ``comms.codec_splits``), the
+   reduced SSM LM and a small decoder LM (fused rounds); the
+   CPU port is held against the JAX package by the tests;
 8. the paper's main path: ``run_experiment(scenario="paper")`` at the
    default ``FederatedALConfig`` (D=4, R=10, W=200, T=16, n_train 4000);
 9. the massive main path: ``run_experiment(scenario="massive",
@@ -43,11 +52,26 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 10. the LM paths, ``run_experiment(cfg, scenario="lm", rounds=2,
     n_test=256)`` on 8 devices: A, one Mamba-2 block at mamba2-1.3b widths
     (K1, K2, K4); B, the 12-layer lm-100m decoder (K1, K2, K3);
-11. the host time of each path's data generation, then all four paths
-    again under ``torch.profiler``: wall, device-busy time, idle share and
-    the kernels with the most device time;
-12. a ``{"kernels": [...]}`` line (launches in phases 8-10, error, times,
-    bound), and last the ``{"ok": true, "device": ...}`` line.
+12. the host-aggregation engines at the paper's defaults:
+    ``run_experiment(FederatedALConfig(), scenario="paper",
+    engine="classic" | "legacy")``, K1 40 launches each, the round's
+    uplink bytes exact;
+13. the massive path with compressed uploads: ``run_experiment(
+    scenario="massive", num_devices=256, rounds=2, comms=...)`` with int8,
+    top-k 0.05 and a bfloat16 wire (K2 and K1 launched, every round's
+    uplink bytes exact, weights summing to 1, the fog model finite);
+14. path B with int8 uploads: ``run_experiment(configs["B"],
+    scenario="lm", rounds=2, n_test=256, comms=CommsConfig(
+    compression="int8"))`` (K1, K2, K3), its wall and peak memory (under
+    76 GiB), the fog model finite;
+11. run last: the host time of each path's data generation, then the
+    four paths of phases 8-10 again under ``torch.profiler`` (wall,
+    device-busy time, idle share, the kernels with the most device time),
+    and phase 13's int8 run and phase 14 with host activity too, for the
+    device time of the codec (the engine's ``comms_codec`` spans);
+15. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-14,
+    error, times, bound), and last the ``{"ok": true, "device": ...}``
+    line.
 
 Kernel times are device times from ``torch.profiler`` (CUDA activity):
 the kernel's own time for ``ms``, every kernel of the call for
@@ -215,12 +239,16 @@ def check_acquisition_kernel(torch, k1):
         "wide [T=16, N=128, C=257]": k1_inputs(torch, gen, (16, 128, 257)),
         "bf16 [D=4, T=16, W=200, C=10]": k1_inputs(
             torch, gen, (4, 16, 200, 10), torch.bfloat16),
+        "classic [T=16, W=200, C=10]": k1_inputs(torch, gen, (16, 200, 10)),
+        "legacy [D=1, T=16, W=200, C=10]": k1_inputs(torch, gen,
+                                                     (1, 16, 200, 10)),
     }
     worst = max(check_k1_case(torch, k1, name, lp, 1e-5)
                 for name, lp in cases.items())
     shapes = []
     for name in ("paper [D=4, T=16, W=200, C=10]",
-                 "massive [D=256, T=4, W=32, C=10]"):
+                 "massive [D=256, T=4, W=32, C=10]",
+                 "classic [T=16, W=200, C=10]"):
         lp = cases[name]
         ms, how, host = timed(torch, lambda: k1.acquisition_scores(lp),
                               "acquisition_scores_kernel")
@@ -352,6 +380,12 @@ def check_aggregation_kernel(torch, k2, tree_leaves):
             mask=mask, out_dtype=torch.float32)),
         "flat normalize int8 + scales": (q, raw, dict(mask=mask,
                                                       scales=scales)),
+        # the delta-form reduce of the compressed fused rounds, as
+        # engine._delta_aggregate calls it: preweighted, float32 out
+        "flat preweighted int8 + scales (codec mode)": (q, w, dict(
+            normalize=False, scales=scales, out_dtype=torch.float32)),
+        "flat preweighted bf16 -> f32 (codec mode)": (tree16, w, dict(
+            normalize=False, out_dtype=torch.float32)),
     }
     worst = 0.0
     for name, (payload, weights, kw) in cases.items():
@@ -408,8 +442,9 @@ def lm_path_configs(torch, fed):
 
 def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
     """Phase 4, LM trees: K2 over D = 8 stacked copies of each LM path's
-    parameter tree, and over tree A in bfloat16 and in int8 with scales.
-    Returns (worst error, times per case)."""
+    parameter tree, over tree A in bfloat16 and in int8 with scales, and
+    over tree B in int8 with scales (path B's int8 uploads).  Returns
+    (worst error, times per case)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, times = 0.0, {}
     for name, cfg in configs.items():
@@ -430,9 +465,8 @@ def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
         del got
         if not err <= 1e-5:
             raise AssertionError(f"K2 LM tree {name}: max_abs_err {err}")
-        if name == "A":
-            worst = max(worst, check_aggregation_narrow_tree(
-                torch, k2, tree_leaves, tree_map, tree, w, gen, times))
+        worst = max(worst, check_aggregation_narrow_tree(
+            torch, k2, tree_leaves, tree_map, name, tree, w, gen, times))
         ms, how, _ = timed(torch, lambda: k2.fused_aggregate(
             tree, w, normalize=False), "fused_aggregate_kernel")
         plain, _, _ = timed(torch, lambda: k2.fused_aggregate_plain(
@@ -453,23 +487,29 @@ def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
     return worst, times
 
 
-def check_aggregation_narrow_tree(torch, k2, tree_leaves, tree_map, tree, w,
-                                  gen, times):
-    """Phase 4, tree A in bfloat16 and as int8 codes with per-(device, leaf)
-    scales: error against the plain version, two calls bit-equal, kernel
-    time against its own byte bound.  Returns the worst error."""
+def check_aggregation_narrow_tree(torch, k2, tree_leaves, tree_map, tree_name,
+                                  tree, w, gen, times):
+    """Phase 4, narrow payloads of LM tree ``tree_name``, preweighted with
+    float32 out as the compressed fused rounds reduce them: tree A in
+    bfloat16 and as int8 codes with per-(device, leaf) scales, tree B as
+    int8 codes with scales.  Error against the plain version, two calls
+    bit-equal, kernel time against its own byte bound.  Returns the worst
+    error."""
     worst = 0.0
-    narrow = {
-        "A bf16": (tree_map(lambda a: a.to(torch.bfloat16), tree),
-                   {"normalize": False, "out_dtype": torch.float32}),
-        "A int8 + scales": (
-            tree_map(lambda a: torch.randint(-127, 128, a.shape, generator=gen,
-                                             device="cuda", dtype=torch.int8),
-                     tree),
-            {"normalize": False, "scales": tree_map(
-                lambda a: 1e-3 * torch.rand(8, generator=gen, device="cuda"),
-                tree)})}
-    for name, (payload, kw) in narrow.items():
+    narrow = {"int8 + scales": lambda: (
+        tree_map(lambda a: torch.randint(-127, 128, a.shape, generator=gen,
+                                         device="cuda", dtype=torch.int8),
+                 tree),
+        {"normalize": False, "out_dtype": torch.float32, "scales": tree_map(
+            lambda a: 1e-3 * torch.rand(8, generator=gen, device="cuda"),
+            tree)})}
+    if tree_name == "A":
+        narrow = {"bf16": lambda: (
+            tree_map(lambda a: a.to(torch.bfloat16), tree),
+            {"normalize": False, "out_dtype": torch.float32}), **narrow}
+    for kind, make in narrow.items():
+        name = f"{tree_name} {kind}"
+        payload, kw = make()
         got = k2.fused_aggregate(payload, w, **kw)
         torch.cuda.synchronize()
         err = max_err(torch, tree_leaves(got), tree_leaves(
@@ -831,6 +871,389 @@ def check_small_round_against_cpu(torch, fed, interop, lenet):
         raise AssertionError(f"card vs CPU params differ by {err} > 1e-4")
 
 
+def small_lenet_fleet(torch, fed, interop, lenet):
+    """Phase 7's RNG-free LeNet fleet: 3 devices of 100 samples, a window
+    of 128 that covers each shard, dropout 0, and the start weights as
+    numpy."""
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    cfg = fed.FederatedALConfig(num_devices=3, initial_train=10,
+                                acquisitions=3, k_per_acquisition=4,
+                                pool_window=128, mc_samples=4,
+                                train_steps_per_acq=5)
+    mcfg = lenet.LeNetConfig(p_conv=0.0, p_fc=0.0)
+    shards = federated_split(make_digit_dataset(300, seed=0), 3, seed=0)
+    seed_set, test = make_digit_dataset(10, seed=11), make_digit_dataset(
+        200, seed=5)
+    p0 = interop.params_to_jax(lenet.LeNet.init(
+        torch.Generator().manual_seed(0), mcfg))
+    return cfg, mcfg, shards, seed_set, test, p0
+
+
+def leaves_err(interop, tree_leaves, a, b) -> float:
+    import numpy as np
+    return max(float(np.abs(x - y).max()) for x, y in zip(
+        tree_leaves(interop.params_to_jax(a)),
+        tree_leaves(interop.params_to_jax(b))))
+
+
+def check_host_engines_against_cpu(torch, fed, interop, lenet, tree_leaves):
+    """Phase 7, host engines: the RNG-free round of ``engine="classic"``
+    and ``engine="legacy"`` on the card and on the CPU: equal labeled
+    counts (and sets, where the history names them), params within
+    1e-4."""
+    cfg, mcfg, shards, seed_set, test, p0 = small_lenet_fleet(
+        torch, fed, interop, lenet)
+    for engine in ("classic", "legacy"):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            out[dev] = fed.run_federated_round(
+                cfg, shards, seed_set, test,
+                trainer=fed.Trainer(cfg, model_cfg=mcfg, device=dev),
+                initial_params=interop.params_from_jax(p0, dev),
+                engine=engine)
+        (pg, rg), (pc, rc) = out["cuda"], out["cpu"]
+        for hg, hc in zip(rg["device_histories"], rc["device_histories"]):
+            for a, b in zip(hg, hc):
+                if (a["n_labeled"] != b["n_labeled"]
+                        or set(a.get("selected", ())) !=
+                        set(b.get("selected", ()))):
+                    raise AssertionError(f"{engine}: card and CPU labeled "
+                                         f"differently: {a} vs {b}")
+        err = leaves_err(interop, tree_leaves, pg, pc)
+        print(f"  card vs CPU small {engine} round: labeled counts equal, "
+              f"params max_abs_err {err:.3e}, aggregated_acc "
+              f"{rg['aggregated_acc']} vs {rc['aggregated_acc']}")
+        if not err <= 1e-4:
+            raise AssertionError(f"{engine}: card vs CPU params differ by "
+                                 f"{err} > 1e-4")
+
+
+class CodecInputs:
+    """While active, every stacked leaf the engine hands its codec
+    (``comms.encode_rows``) is also kept, on the host, in ``self.leaves``
+    (the tree's leaf order)."""
+
+    def __init__(self, comms):
+        self.comms, self.encode, self.leaves = comms, comms.encode_rows, []
+
+    def __enter__(self):
+        def keep(cfg, x, generator=None):
+            self.leaves.append(x.detach().to("cpu", copy=True))
+            return self.encode(cfg, x, generator)
+        self.leaves = []
+        self.comms.encode_rows = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.comms.encode_rows = self.encode
+
+
+def check_comms_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves,
+                                   tree_map):
+    """Phase 7, compressed uploads: fused LeNet rounds with top-k 0.05 and
+    with a bfloat16 wire (error feedback on) on the card and on the CPU,
+    round by round, the card's next round starting from the CPU's state
+    so that a codec split does not carry over.  Per round and leaf:
+    labeled sets equal and params within 1e-4; the card's residuals
+    bit-equal to its own codec input minus what the CPU's codec sends for
+    that input (the codec and the error-feedback update on the card, held
+    exactly); the two runs' codec inputs (a device's own trained delta
+    plus its residual) within the params' 1e-4 but for at most
+    ``comms.split_budget`` entries of a leaf, none beyond one Adam step,
+    the learning rate (where a gradient is near 0, Adam's normalised step
+    turns the two runs' different sum orders into steps of either sign);
+    and the residuals within 1e-5 but for at most ``comms.split_budget``
+    entries of a leaf, each a codec split (``comms.codec_splits``: at a
+    top-k boundary or a bfloat16 rounding tie, apart by at most the
+    codec's jump there plus the inputs' difference) or apart by no more
+    than its inputs' difference."""
+    from repro_torch.core import comms
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.core.vpool import VPool
+
+    cfg, mcfg, shards, seed_set, test, p0 = small_lenet_fleet(
+        torch, fed, interop, lenet)
+    for name, cc in (("top-k 0.05", comms.CommsConfig(compression="topk",
+                                                       topk_fraction=0.05)),
+                     ("bf16 wire", comms.CommsConfig(
+                         compute_dtype="bfloat16"))):
+        engs = {dev: EdgeEngine(fed.Trainer(cfg, model_cfg=mcfg, device=dev),
+                                cfg, shards, seed_set, test,
+                                total_acquisitions=2 * cfg.acquisitions,
+                                device=dev) for dev in ("cuda", "cpu")}
+        st = {dev: e.init_state(interop.params_from_jax(p0, dev))
+              for dev, e in engs.items()}
+        for t in range(2):
+            fin, xs = {}, {}
+            for dev, e in engs.items():
+                with CodecInputs(comms) as seen:
+                    st[dev], _, fin[dev] = e.run_rounds_fused(
+                        st[dev], 1, comms=cc, start_round=t)
+                xs[dev] = seen.leaves
+            (sg, sc) = st["cuda"], st["cpu"]
+            if not torch.equal(sg.pool.labeled_mask.cpu(),
+                               sc.pool.labeled_mask):
+                raise AssertionError(f"{name} round {t}: card and CPU "
+                                     "labeled different samples")
+            err = leaves_err(interop, tree_leaves, fin["cuda"], fin["cpu"])
+            worst = eps_max = 0.0
+            far_n = splits = noisy_n = 0
+            for xg, xc, rg, rc in zip(xs["cuda"], xs["cpu"],
+                                      tree_leaves(sg.residual),
+                                      tree_leaves(sc.residual), strict=True):
+                rg = rg.cpu()
+                sent = comms.decode_rows(*comms.encode_rows(cc, xg))
+                if not torch.equal(rg, xg - sent):
+                    raise AssertionError(f"{name} round {t}: the card's "
+                                         "residual is not its codec input "
+                                         "minus the CPU codec's output")
+                eps = (xg - xc).abs()
+                noisy = int((eps > 1e-4).sum())
+                if (noisy > comms.split_budget(eps.numel())
+                        or not float(eps.max()) <= cfg.lr):
+                    raise AssertionError(
+                        f"{name} round {t}: codec inputs apart by up to "
+                        f"{float(eps.max())}, {noisy} entries beyond 1e-4")
+                gap, far, sp, bad = comms.residual_gaps(cc, xc, rg, rc,
+                                                        tol=1e-5, eps=eps)
+                if bad or far > comms.split_budget(rg.numel()):
+                    raise AssertionError(
+                        f"{name} round {t}: {far} residual entries of "
+                        f"{rg.numel()} beyond 1e-5, {sp} of them codec "
+                        f"splits, {bad} neither a split nor within their "
+                        "inputs' difference")
+                worst = max(worst, gap)
+                eps_max = max(eps_max, float(eps.max()))
+                noisy_n += noisy
+                far_n, splits = far_n + far, splits + sp
+            print(f"  card vs CPU fused LeNet round {t}, {name}: labeled "
+                  f"sets equal, params max_abs_err {err:.3e}; the card's "
+                  f"residuals bit-equal to its codec's; codec inputs apart "
+                  f"by at most {eps_max:.3e} ({noisy_n} entries beyond "
+                  f"1e-4); residuals max_abs_err "
+                  f"{worst:.3e}, {far_n} entries beyond 1e-5 ({splits} of "
+                  f"them codec splits)")
+            if not err <= 1e-4:
+                raise AssertionError(f"{name} round {t}: params differ by "
+                                     f"{err} > 1e-4")
+            # the card's next round starts from the CPU's state
+            params = tree_map(lambda a: a.to("cuda"), sc.params)
+            st["cuda"] = sg._replace(
+                params=params,
+                opt_state=engs["cuda"].trainer.opt.init(params),
+                pool=VPool(*(f.to("cuda") for f in sc.pool)),
+                residual=tree_map(lambda a: a.to("cuda"), sc.residual))
+
+
+def lenet_template(torch, lenet):
+    """One LeNet parameter tree (the byte ledger's template)."""
+    return lenet.LeNet.init(torch.Generator().manual_seed(0),
+                            lenet.LeNetConfig())
+
+
+def run_host_engine_paths(torch, fed, comms, lenet, reset, read):
+    """Phase 12: the paper's defaults on the host-aggregation engines,
+    ``run_experiment(FederatedALConfig(), scenario="paper",
+    engine=...)``: K1 launched 40 times (4 devices x 10 acquisitions),
+    histories 4 x 10, accuracies finite in [0, 1], and the round's uplink
+    exactly 4 uploads of a float32 LeNet plus metadata.  Returns {engine:
+    (wall s, launches)}."""
+    import numpy as np
+    want = 4 * (comms.upload_bytes(None, lenet_template(torch, lenet))
+                + comms.METADATA_BYTES_PER_UPLOAD)
+    out = {}
+    for engine in ("classic", "legacy"):
+        reset()
+        t0 = time.perf_counter()
+        rep = fed.run_experiment(fed.FederatedALConfig(), scenario="paper",
+                                 engine=engine)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        print(f"  {engine}: initial_acc {rep['initial_acc']} aggregated_acc "
+              f"{rep['aggregated_acc']} wall {wall:.3f} s launches "
+              f"{launches}; uplink {rep['comms']['uplink_bytes']} bytes")
+        if launches["acquisition_scores"] != 40:
+            raise AssertionError(f"{engine}: {launches['acquisition_scores']}"
+                                 " acquisition-score launches, not 40")
+        n_hist = [len(h) for h in rep["device_histories"]]
+        if n_hist != [10] * 4:
+            raise AssertionError(f"{engine}: histories {n_hist} != 4 x 10")
+        for v in (rep["initial_acc"], rep["aggregated_acc"]):
+            if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+                raise AssertionError(f"{engine}: accuracy {v}")
+        if rep["comms"]["uplink_bytes"] != want:
+            raise AssertionError(f"{engine}: uplink "
+                                 f"{rep['comms']['uplink_bytes']} != {want}")
+        out[engine] = (wall, launches)
+    return out
+
+
+def check_round_bytes(comms, name, rounds, cc, template):
+    """Each round's uplink is exactly its uploads times (the codec's
+    upload bytes + metadata), and its Eq. 1 weights sum to 1 within 1e-4
+    with a finite accuracy in [0, 1]."""
+    ub = comms.upload_bytes(cc, template) + comms.METADATA_BYTES_PER_UPLOAD
+    for r in rounds:
+        c = r["comms"]
+        if c["uplink_bytes"] != c["uploads"] * ub or c["uploads"] < 1:
+            raise AssertionError(f"{name} round {r['round']}: uplink "
+                                 f"{c['uplink_bytes']} != {c['uploads']} x "
+                                 f"{ub}")
+        wsum = sum(r["aggregation"]["weights"])
+        acc = r["aggregated_acc"]
+        if not (abs(wsum - 1.0) < 1e-4 and acc == acc and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"{name} round {r['round']}: weights sum "
+                                 f"{wsum}, acc {acc}")
+
+
+class FogModels:
+    """While active, the fog model that each ``run_federated_rounds`` call
+    returns (``run_experiment`` reports without it) is kept in
+    ``self.models``."""
+
+    def __init__(self, fed):
+        self.fed, self.rounds, self.models = fed, fed.run_federated_rounds, []
+
+    def __enter__(self):
+        def keep(*args, **kw):
+            fog, reports = self.rounds(*args, **kw)
+            self.models.append(fog)
+            return fog, reports
+        self.fed.run_federated_rounds = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.fed.run_federated_rounds = self.rounds
+
+    def check_finite(self, torch, name):
+        """Every leaf of every kept fog model is finite (a NaN int8 scale,
+        which the codec sends for a non-finite leaf, would spread)."""
+        from repro_torch.tree import tree_items
+        if not self.models:
+            raise AssertionError(f"{name}: no fog model came back")
+        for fog in self.models:
+            for path, leaf in tree_items(fog):
+                if not bool(torch.isfinite(leaf).all()):
+                    raise AssertionError(f"{name}: fog model leaf {path} "
+                                         "is not finite")
+
+
+MASSIVE_CODECS = {"int8": dict(compression="int8"),
+                  "top-k 0.05": dict(compression="topk", topk_fraction=0.05),
+                  "bf16 wire": dict(compute_dtype="bfloat16")}
+
+
+def run_massive_codecs(torch, fed, comms, lenet, reset, read):
+    """Phase 13: ``run_experiment(scenario="massive", num_devices=256,
+    rounds=2, comms=...)`` for each codec: K2 at least twice and K1 at
+    least once, the byte ledger exact, weights summing to 1, the fog model
+    finite.  Returns
+    {codec: (wall s, launches, uplink bytes a round)}."""
+    template = lenet_template(torch, lenet)
+    out = {}
+    for name, kw in MASSIVE_CODECS.items():
+        cc = comms.CommsConfig(**kw)
+        reset()
+        t0 = time.perf_counter()
+        with FogModels(fed) as fog:
+            rep = fed.run_experiment(scenario="massive", num_devices=256,
+                                     rounds=2, comms=cc)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        fog.check_finite(torch, f"massive {name}")
+        del fog
+        per_round = rep["comms"]["uplink_bytes_per_round"]
+        print(f"  {name}: aggregated_acc per round "
+              f"{[r['aggregated_acc'] for r in rep['rounds']]} wall "
+              f"{wall:.3f} s launches {launches}; uplink bytes per round "
+              f"{per_round}, compression ratio "
+              f"{rep['comms']['compression_ratio']:.4f}")
+        if launches["fused_aggregation"] < 2:
+            raise AssertionError(f"massive {name}: fewer than 2 "
+                                 "fused-aggregation launches")
+        if launches["acquisition_scores"] < 1:
+            raise AssertionError(f"massive {name}: no acquisition-score "
+                                 "launch")
+        check_round_bytes(comms, f"massive {name}", rep["rounds"], cc,
+                          template)
+        out[name] = (wall, launches, per_round)
+    return out
+
+
+def run_lm_int8(torch, fed, comms, config, reset, read):
+    """Phase 14: path B (lm-100m, full width and depth, 8 devices) for 2
+    rounds with int8 uploads: K1, K2 (at least twice) and K3 launched, the
+    byte ledger exact, the fog model finite, peak device memory under 76
+    GiB.  Returns (wall s,
+    launches, peak GiB)."""
+    cc = comms.CommsConfig(compression="int8")
+    template = config.adapter.init(torch.Generator(device="cuda").manual_seed(0))
+    ub = comms.upload_bytes(cc, template)
+    del template
+    torch.cuda.empty_cache()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with FogModels(fed) as fog:
+        rep = fed.run_experiment(config, scenario="lm", rounds=2, n_test=256,
+                                 comms=cc)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fog.check_finite(torch, "path B int8")
+    del fog
+    print(f"  path B int8: aggregated_acc per round "
+          f"{[r['aggregated_acc'] for r in rep['rounds']]}; wall {wall:.3f} "
+          f"s; launches {launches}; peak device memory {peak:.2f} GiB; "
+          f"upload {ub} bytes a device (ratio "
+          f"{rep['comms']['compression_ratio']:.4f})")
+    for k, least in (("acquisition_scores", 1), ("fused_aggregation", 2),
+                     ("flash_attention", 1)):
+        if launches[k] < least:
+            raise AssertionError(f"path B int8: {launches[k]} {k} launches")
+    for r in rep["rounds"]:
+        c = r["comms"]
+        if c["uplink_bytes"] != c["uploads"] * (
+                ub + comms.METADATA_BYTES_PER_UPLOAD):
+            raise AssertionError(f"path B int8 round {r['round']}: uplink "
+                                 f"{c['uplink_bytes']}")
+        wsum = sum(r["aggregation"]["weights"])
+        if not abs(wsum - 1.0) < 1e-4:
+            raise AssertionError(f"path B int8: weights sum {wsum}")
+    if not peak < 76.0:
+        raise AssertionError(f"path B int8 peaks at {peak:.2f} GiB >= 76")
+    return wall, launches, peak
+
+
+def profile_codec_path(torch, fn, span):
+    """Run ``fn`` once under the profiler with host and device activity:
+    ``(wall s, device-busy s, device ms inside the ``span`` ranges, the
+    six kernels with the most device time)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    kern = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
+            for ev in avgs if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    kern.sort(key=lambda e: -e[1])
+    busy = sum(e[1] for e in kern) / 1e3
+    codec = sum(ev.device_time_total for ev in avgs if ev.key == span) / 1e3
+    return wall, busy, codec, [(k[:70], round(ms, 3), n)
+                               for k, ms, n in kern[:6]]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -844,7 +1267,9 @@ def main() -> int:
     sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch import interop
+    from repro_torch.core import comms
     from repro_torch.core import federated as fed
+    from repro_torch.core.engine import CODEC_SPAN
     from repro_torch.kernels import _build
     from repro_torch.kernels import acquisition_scores as k1
     from repro_torch.kernels import flash_attention as k3
@@ -890,6 +1315,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("phase 7: small rounds, card vs CPU")
     check_small_round_against_cpu(torch, fed, interop, lenet)
+    check_host_engines_against_cpu(torch, fed, interop, lenet, tree_leaves)
+    check_comms_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves,
+                                   tree_map)
     check_small_lm_rounds_against_cpu(torch, fed, interop)
 
     def reset():
@@ -955,6 +1383,17 @@ def main() -> int:
                 raise AssertionError(f"path {name} launched no {k} kernel")
         torch.cuda.empty_cache()
 
+    print("phase 12: host-aggregation engines at the paper's defaults")
+    host = run_host_engine_paths(torch, fed, comms, lenet, reset, read)
+    torch.cuda.empty_cache()
+    print("phase 13: massive main path with compressed uploads (D=256, 2 "
+          "rounds)")
+    codecs = run_massive_codecs(torch, fed, comms, lenet, reset, read)
+    torch.cuda.empty_cache()
+    print("phase 14: path B with int8 uploads (lm-100m, 8 devices, 2 rounds)")
+    b_int8 = run_lm_int8(torch, fed, comms, configs["B"], reset, read)
+    torch.cuda.empty_cache()
+
     print("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
     t0 = time.perf_counter()
@@ -985,14 +1424,37 @@ def main() -> int:
         print(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}")
         torch.cuda.empty_cache()
+    int8 = comms.CommsConfig(compression="int8")
+    codec_profiles = {}
+    for name, fn in (
+            ("massive int8", lambda: fed.run_experiment(
+                scenario="massive", num_devices=256, rounds=2, comms=int8)),
+            ("B int8", lambda: fed.run_experiment(
+                configs["B"], scenario="lm", rounds=2, n_test=256,
+                comms=int8))):
+        wall, busy, codec, top = profile_codec_path(torch, fn, CODEC_SPAN)
+        codec_profiles[name] = {"wall_s": wall, "busy_s": busy,
+                                "codec_device_ms": codec}
+        print(f"  {name} (host and device activity): wall {wall:.3f} s, "
+              f"device busy {busy:.3f} s (idle share "
+              f"{1.0 - busy / wall:.3f}); codec ({CODEC_SPAN} spans) "
+              f"{codec:.3f} ms of device time; top kernels {top}")
+        torch.cuda.empty_cache()
 
-    all_launches = [paper_launches, massive_launches, *lm_launches.values()]
+    all_launches = [paper_launches, massive_launches, *lm_launches.values(),
+                    *(v[1] for v in host.values()),
+                    *(v[1] for v in codecs.values()), b_int8[1]]
     for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
         entry["launches"] = sum(run[entry["name"]] for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
                       "lm_s": lm_walls, "paper_launches": paper_launches,
                       "massive_launches": massive_launches,
                       "lm_launches": lm_launches,
+                      "host_engines": host, "massive_codecs": codecs,
+                      "lm_b_int8": {"wall_s": b_int8[0],
+                                    "launches": b_int8[1],
+                                    "peak_gib": b_int8[2]},
+                      "codec_profiles": codec_profiles,
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

@@ -16,7 +16,7 @@ Weight hygiene: ``masked_normalize`` is the one home of the zero-sum guard
 (Σw = 0 over participants → uniform over participants; no participants →
 uniform over all slots), with the reference's 1e-30 floor.  Σα = 1 is
 load-bearing: it makes Eq. 1 exact in delta form, which the comms codecs
-of a later slice rely on.
+rely on.
 
 ``segment_sum_stacked`` (the reference keeps it in ``core.topology``) lives
 here until the topology slice is ported, because the kernel's segment mode
@@ -155,16 +155,20 @@ def segment_sum_stacked(stacked, coeff, ids, num_groups: int, *,
 
 
 def aggregate_stacked(stacked, w, *, segment_ids=None,
-                      num_segments: Optional[int] = None, out_dtype=None):
+                      num_segments: Optional[int] = None, scales=None,
+                      out_dtype=None):
     """THE routed Eq. 1 reduce: Σ_i w_i · leaf[i], flat (→ ``[...]``) or
     per segment (→ ``[G, ...]``), ``w`` applied AS-IS (preweighted).
+    ``scales`` (a tree of ``[D]`` float32) makes the leaves int8 codes,
+    dequantized as ``q · scale`` first.
 
     Goes through the fused-aggregation kernel's wrapper: the CUDA kernel
     for tensors on the card, its plain version on the CPU."""
     from repro_torch.kernels.fused_aggregation import fused_aggregate
     return fused_aggregate(stacked, w, normalize=False,
                            segment_ids=segment_ids,
-                           num_segments=num_segments, out_dtype=out_dtype)
+                           num_segments=num_segments, scales=scales,
+                           out_dtype=out_dtype)
 
 
 def weighted_average_stacked(stacked, weights, *, mask=None):

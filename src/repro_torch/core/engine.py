@@ -11,16 +11,23 @@ acquisition is one batched pass over all devices:
   (the fused acquisition-score kernel for entropy / BALD / VR) → top-k →
   ``vpool.acquire`` → masked full-batch fit on seed ∪ acquired.
 
+``run_round_legacy`` runs the same acquisition step one device and one
+acquisition per call (the reference's per-device dispatch loop).
+
 ``run_rounds_fused`` adds the fog node (the reference's in-compile fog):
 per round, the per-device validation accuracy, the Eq. 1 weights over the
 participants, the stacked reduce through the fused-aggregation kernel
-(``aggregation.aggregate_stacked``), and re-dispatch.  Leaves the adapter
-keeps per device (``model_adapter.excluded_paths``: the SSM adapter's
-recurrent state) stay out of Eq. 1: they carry no mass into the reduce,
-each device keeps its own value at re-dispatch, and the fog model reports
-device 0's.  This slice ports the base path; the comms / hetero / faults /
-guards / churn / topology / fleet options raise ``NotImplementedError``
-naming their ROADMAP item.
+(``aggregation.aggregate_stacked``), and re-dispatch.  With a lossy
+``comms`` codec (``core.comms``) it aggregates in delta form: each
+device's delta from the dispatched model, plus its error-feedback
+residual, crosses the wire compressed, and the kernel reduces the wire
+payload itself (int8 codes with scales, bfloat16 or float32 values).
+Leaves the adapter keeps per device (``model_adapter.excluded_paths``: the
+SSM adapter's recurrent state) stay out of Eq. 1: they carry no mass into
+the reduce, each device keeps its own value at re-dispatch, and the fog
+model reports device 0's.  The hetero / faults / guards / churn /
+topology / fleet options raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Samples keep their dtype and rank end to end: float32 images ``[28, 28,
 1]`` for LeNet, int32 token sequences ``[S]`` for the LM adapters.
@@ -29,7 +36,10 @@ Randomness comes from one ``torch.Generator`` per round on the engine's
 device (``EngineState.rng``), seeded from ``cfg.seed`` and the absolute
 round index, never from global state.  Its bits are not the reference's
 threefry bits, so parity tests run the RNG-free configuration (dropout
-off, the window covering the whole pool).
+off, the window covering the whole pool).  The legacy loop draws from the
+same one generator, device after device, so it equals the vmap round on
+that configuration only.  The int8 codec draws its rounding uniforms from
+a generator of its own a round (``comms_generator``).
 """
 from __future__ import annotations
 
@@ -40,19 +50,24 @@ import torch
 
 from repro_torch.core import acquisition as acq
 from repro_torch.core import aggregation as agg_mod
+from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
 from repro_torch.kernels.acquisition_scores import acquisition_scores
-from repro_torch.tree import tree_items, tree_map, tree_map_with_path
+from repro_torch.tree import (tree_items, tree_leaves, tree_map,
+                              tree_map_with_path)
 
 _AGGREGATIONS = ("average", "weighted", "optimal", "fedavg_n")
 
 _FUSED_SCORES = ("entropy", "bald", "vr")
 
+# profiler span around the comms codec of a fused round (encode, decode
+# and the error-feedback update, without the Eq. 1 reduce)
+CODEC_SPAN = "comms_codec"
+
 # options of the reference's run_rounds_fused that later slices port
 _UNPORTED_FUSED = {
-    "comms": "Queue 1 item 9 (comms)",
     "hetero": "Queue 1 item 10 (heterogeneous fleets)",
     "faults": "Queue 1 item 11 (faults and checkpoints)",
     "guards": "Queue 1 item 11 (faults and checkpoints)",
@@ -74,11 +89,14 @@ def reject_unported(where: str, table: Dict[str, str], **options) -> None:
 
 class EngineState(NamedTuple):
     """Per-device state, stacked along a leading device axis D.  ``rng`` is
-    the generator the next round draws from."""
+    the generator the next round draws from; ``residual`` is the comms
+    error-feedback buffer (a ``[D, ...]`` tree like ``params``, or ``()``
+    while no codec with error feedback has run)."""
     params: Any           # [D, ...] tree
     opt_state: Any        # [D, ...] tree
     pool: vpool.VPool     # [D, ...] fields
     rng: torch.Generator
+    residual: Any = ()    # [D, ...] tree or ()
 
 
 def stack_device_data(device_data: Sequence, device):
@@ -119,6 +137,55 @@ def _aggregate_shared(params, w, excl):
     reduced = agg_mod.aggregate_stacked(flat, w) if flat else {}
     return tree_map_with_path(
         lambda path, leaf: leaf[0] if path in excl else reduced[path], params)
+
+
+def score_logprobs(name: str, logp: torch.Tensor) -> torch.Tensor:
+    """Acquisition scores ``[..., W]`` (higher = more informative) of MC
+    log-probs ``[..., T, W, C]``: entropy, BALD and VR through the
+    acquisition-score kernel, the other functions in plain PyTorch."""
+    if name in _FUSED_SCORES:
+        ent, bald, vr = acquisition_scores(logp)
+        return {"entropy": ent, "bald": bald, "vr": vr}[name]
+    return acq.acquisition_scores(name, logp)
+
+
+def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
+                     generator):
+    """Eq. 1 in delta form over a lossy wire: ``params_prev[0] + Σ_i w_i ·
+    C(Δ_i + e_i)`` with ``Δ = params − params_prev``, reduced by the
+    fused-aggregation kernel from the wire payload.  ``residual`` (the
+    error-feedback tree, or None without it) is updated IN PLACE to ``(Δ +
+    e) − C(Δ + e)`` on the rows of devices that uploaded (``upload [D] >
+    0``); the others keep theirs.  Excluded leaves carry no delta (their
+    residual stays 0) and report device 0's value.  Works leaf by leaf, so
+    one leaf's temporaries are alive at a time."""
+    prev = dict(tree_items(params_prev))
+    res = None if residual is None else dict(tree_items(residual))
+    payload, scales = {}, {}
+    # the profiler's span for the codec's own device work (not the reduce)
+    with torch.profiler.record_function(CODEC_SPAN):
+        for path, leaf in tree_items(params):
+            if path in excl:
+                continue
+            to_send = leaf - prev[path]
+            if res is not None:
+                to_send += res[path]
+            payload[path], scales[path] = comms_mod.encode_rows(
+                cfg, to_send, generator)
+            if res is not None:
+                sent = comms_mod.decode_rows(payload[path], scales[path])
+                up = upload.reshape((-1,) + (1,) * (leaf.dim() - 1)) > 0
+                res[path].copy_(torch.where(up, to_send.sub_(sent),
+                                            res[path]))
+                del sent
+            del to_send
+    reduced = (agg_mod.aggregate_stacked(
+        payload, w, scales=scales if cfg.compression == "int8" else None,
+        out_dtype=torch.float32) if payload else {})
+    del payload
+    return tree_map_with_path(
+        lambda path, leaf: (leaf[0] if path in excl
+                            else prev[path][0] + reduced[path]), params)
 
 
 class EdgeEngine:
@@ -171,11 +238,17 @@ class EdgeEngine:
 
     def set_params(self, state: EngineState, params0, *,
                    round_idx: int = 0) -> EngineState:
-        """Re-dispatch an aggregated model to the fleet (pools persist,
-        optimizer state and generator reset)."""
+        """Re-dispatch an aggregated model to the fleet (pools and residuals
+        persist, optimizer state and generator reset)."""
         params = broadcast_params(params0, self.num_devices)
         return EngineState(params, self.trainer.opt.init(params), state.pool,
-                           self.device_generator(round_idx))
+                           self.device_generator(round_idx), state.residual)
+
+    def comms_generator(self, round_idx: int = 0) -> torch.Generator:
+        """The generator the int8 codec of round ``round_idx`` (absolute
+        index) draws its rounding uniforms from."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed + 0x636F6D + 104729 * round_idx)
 
     def device_params_list(self, state: EngineState) -> List:
         return agg_mod.unstack_models(state.params)
@@ -199,24 +272,23 @@ class EdgeEngine:
     def _scores(self, params, x_win, gen):
         """MC-dropout scores ``[D, W]`` of the window images ``[D, W, ...]``;
         higher = more informative."""
-        cfg, trainer = self.cfg, self.trainer
-        logp = trainer.score_logprobs(params, x_win, gen, cfg.mc_samples)
-        if cfg.acquisition_fn in _FUSED_SCORES:
-            ent, bald, vr = acquisition_scores(logp)
-            return {"entropy": ent, "bald": bald, "vr": vr}[cfg.acquisition_fn]
-        return acq.acquisition_scores(cfg.acquisition_fn, logp)
+        cfg = self.cfg
+        return score_logprobs(cfg.acquisition_fn, self.trainer.score_logprobs(
+            params, x_win, gen, cfg.mc_samples))
 
     def _acquisition(self, params, opt_state, pool, gen, *,
-                     record_curves: bool):
-        """One acquisition for every device at once."""
-        D = self.num_devices
+                     record_curves: bool, devices: slice = slice(None)):
+        """One acquisition for the ``devices`` of the fleet at once (all of
+        them by default; the state trees hold just those rows)."""
+        images, labels = self.images[devices], self.labels[devices]
+        D = images.shape[0]
         rows = torch.arange(D, device=self.device)[:, None]
         win_idx, win_valid = vpool.draw_window(pool, gen, self.window)
         if self.cfg.acquisition_fn == "random":
             scores = torch.rand(win_idx.shape, generator=gen,
                                 device=self.device)
         else:
-            scores = self._scores(params, self.images[rows, win_idx], gen)
+            scores = self._scores(params, images[rows, win_idx], gen)
         scores = torch.where(win_valid, scores,
                              torch.full_like(scores, -float("inf")))
         sel = acq.select_topk(scores, self.k)
@@ -227,9 +299,9 @@ class EdgeEngine:
         gidx = pool.labeled_idx.long().clamp(min=0)
         m0 = self.seed_images.shape[0]
         x = torch.cat([self.seed_images.unsqueeze(0).expand(
-            D, *self.seed_images.shape), self.images[rows, gidx]], dim=1)
+            D, *self.seed_images.shape), images[rows, gidx]], dim=1)
         y = torch.cat([self.seed_labels.unsqueeze(0).expand(D, m0),
-                       self.labels[rows, gidx]], dim=1)
+                       labels[rows, gidx]], dim=1)
         m = torch.cat([torch.ones((D, m0), device=self.device),
                        pool.labeled_valid.float()], dim=1)
         params, opt_state = self.trainer.fit_steps(
@@ -265,7 +337,42 @@ class EdgeEngine:
         params, opt_state, pool, recs = self._round(
             state.params, state.opt_state, state.pool, state.rng,
             record_curves=record)
-        return EngineState(params, opt_state, pool, state.rng), recs
+        return EngineState(params, opt_state, pool, state.rng,
+                           state.residual), recs
+
+    def run_round_legacy(self, state: EngineState, *,
+                         record_curves: bool = True):
+        """The same acquisition step as ``run_round``, one device and one
+        acquisition per call (D·R calls, each counted as a dispatch, as
+        the reference counts its per-device loop).  Every device draws
+        from ``state.rng`` in turn, device 0's R acquisitions first, so
+        the result equals ``run_round``'s on the RNG-free configuration
+        (dropout 0, the window covering the pool) and not otherwise."""
+        record = record_curves and self.test_images is not None
+        self._check_capacity(state)
+        R = self.cfg.acquisitions
+        rows = lambda t, d: tree_map(lambda a: a[d:d + 1], t)
+        carries, recs = [], []
+        for d in range(self.num_devices):
+            params, opt_state = rows(state.params, d), rows(state.opt_state, d)
+            pool = vpool.VPool(*(f[d:d + 1] for f in state.pool))
+            dev_recs = []
+            for _ in range(R):
+                counters.count_dispatch()
+                params, opt_state, pool, rec = self._acquisition(
+                    params, opt_state, pool, state.rng, record_curves=record,
+                    devices=slice(d, d + 1))
+                dev_recs.append(rec)
+            carries.append((params, opt_state, pool))
+            recs.append({k: torch.stack([r[k] for r in dev_recs], dim=1)
+                         for k in dev_recs[0]})            # [1, R, ...]
+        cat = lambda *xs: torch.cat(xs)
+        params = tree_map(cat, *[c[0] for c in carries])
+        opt_state = tree_map(cat, *[c[1] for c in carries])
+        pool = vpool.VPool(*map(cat, *[c[2] for c in carries]))
+        recs = {k: torch.cat([r[k] for r in recs]) for k in recs[0]}
+        return EngineState(params, opt_state, pool, state.rng,
+                           state.residual), recs
 
     def run_rounds_fused(self, state: EngineState, rounds: int, *,
                          upload_mask=None, upload_fraction: float = 1.0,
@@ -280,18 +387,31 @@ class EdgeEngine:
         α_i ∝ labeled counts n_i).  ``upload_mask`` (``[rounds, D]`` or
         ``[D]``, truthy = uploaded) models partial participation;
         ``upload_fraction < 1`` instead draws a Bernoulli mask per round
-        from a seed of ``(cfg.seed, absolute round)``.  Weights normalize
-        over the participants; everyone receives the aggregated model.
-        Pass ``start_round`` = rounds completed so far when chaining calls.
+        with numpy from a seed of ``(cfg.seed, absolute round)``: another
+        draw stream than the reference's in-trace ``jax.random`` one, so
+        the same fraction gives other masks.  Weights normalize over the
+        participants; everyone receives the aggregated model.  Pass
+        ``start_round`` = rounds completed so far when chaining calls.
+
+        ``comms`` (``core.comms.CommsConfig``) with a lossy wire (int8,
+        top-k or a bfloat16 ``compute_dtype``) uploads each device's delta
+        from the model it started the round from, plus its error-feedback
+        residual (``state.residual``, created as zeros when empty and
+        dropped when the codec or error feedback is off), through the
+        codec; the fog node adds the Eq. 1 sum of the decoded deltas to
+        that model.  The delta form assumes the rows of ``state.params``
+        start the call identical (the dispatch protocol every driver
+        follows).  Byte accounting stays on the host
+        (``comms.comms_report`` over the returned ``recs``).
 
         Returns ``(state, recs, aggregated_params)``: ``recs`` holds
         ``[rounds, ...]`` rows ``weights``, ``upload_mask``, ``n_labeled``
         (and ``device_accs`` / ``agg_acc`` with a validation set);
         ``aggregated_params`` is the last round's fog model (its excluded
         leaves are device 0's)."""
-        reject_unported("run_rounds_fused", _UNPORTED_FUSED, comms=comms,
-                        hetero=hetero, faults=faults, guards=guards,
-                        live_mask=live_mask, topology=topology, fleet=fleet)
+        reject_unported("run_rounds_fused", _UNPORTED_FUSED, hetero=hetero,
+                        faults=faults, guards=guards, live_mask=live_mask,
+                        topology=topology, fleet=fleet)
         if aggregation not in _AGGREGATIONS:
             raise ValueError(f"unknown aggregation {aggregation!r}: "
                              f"use {' | '.join(_AGGREGATIONS)}")
@@ -318,6 +438,14 @@ class EdgeEngine:
             m = np.ones((rounds, D), np.float32)
         masks = torch.as_tensor(np.asarray(m, np.float32), device=self.device)
 
+        codec = comms if comms is not None and comms.lossy else None
+        residual = None
+        if codec is not None and codec.error_feedback:
+            # the loop updates the buffer in place: never the caller's
+            residual = (tree_map(torch.clone, state.residual)
+                        if tree_leaves(state.residual)
+                        else tree_map(torch.zeros_like, state.params))
+
         counters.count_dispatch()
         trainer = self.trainer
         params, opt_state, pool, gen = (state.params, state.opt_state,
@@ -328,6 +456,7 @@ class EdgeEngine:
         for t in range(rounds):
             if t > 0:
                 gen = self.device_generator(start_round + t)
+            params_prev = params
             params, opt_state, pool, _ = self._round(
                 params, opt_state, pool, gen, record_curves=False)
             mask = masks[t]
@@ -349,7 +478,13 @@ class EdgeEngine:
                     torch.argmax(masked), D).float()
             w = agg_mod.masked_normalize(raw, mask)
             with torch.no_grad():
-                agg = _aggregate_shared(params, w, excl)
+                if codec is None:
+                    agg = _aggregate_shared(params, w, excl)
+                else:
+                    agg = _delta_aggregate(
+                        codec, params, params_prev, residual, w, mask, excl,
+                        self.comms_generator(start_round + t))
+            del params_prev
             row = {"weights": w, "upload_mask": mask, "n_labeled": counts}
             if has_val:
                 row["device_accs"] = accs
@@ -365,7 +500,8 @@ class EdgeEngine:
                 params, broadcast_params(agg, D))
             opt_state = trainer.opt.init(params)
         out = {k: torch.stack(v) for k, v in recs.items()}
-        return EngineState(params, opt_state, pool, gen), out, agg
+        return (EngineState(params, opt_state, pool, gen,
+                            () if residual is None else residual), out, agg)
 
     # ------------------------------------------------------------ reporting
     def histories(self, recs) -> List[List[dict]]:

@@ -8,30 +8,38 @@ Round structure (paper §III-B):
      acquisition function, k new labels per acquisition, windowed pool).
   4. Devices upload parameters; FN aggregates (Eq. 1).
 
-The port has the ``vmap`` engine (``EdgeEngine.run_round``, host-side
-Eq. 1) and the ``fused`` engine (``EdgeEngine.run_rounds_fused``, Eq. 1
-through the fused-aggregation kernel), and ``run_experiment`` for the
-``paper``, ``massive`` and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet
-for an LM adapter (``core.model_adapter``) on token shards
-(``data.lm``).  Everything runs on ``device``
-(default ``"cuda"``; see ``repro_torch.device``).  Reports carry the
-reference's keys except ``"comms"``, which arrives with the comms slice.
+The port has the reference's four round-synchronous engines: ``vmap``
+(``EdgeEngine.run_round``, host-side Eq. 1), ``legacy`` (the same step
+one device and one acquisition per call), ``classic`` (the ``EdgeDevice``
+loop over a numpy ``ActivePool``), and ``fused`` (``EdgeEngine
+.run_rounds_fused``, Eq. 1 through the fused-aggregation kernel, with
+optional compressed uploads).  ``run_experiment`` runs the ``paper``,
+``massive`` and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet for an LM
+adapter (``core.model_adapter``) on token shards (``data.lm``).
+Everything runs on ``device`` (default ``"cuda"``; see
+``repro_torch.device``).  Reports carry the reference's keys, the byte
+ledger's ``"comms"`` entry (``core.comms``) included.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import acquisition as acq
+from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters
 from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
-from repro_torch.core.engine import EdgeEngine, reject_unported
+from repro_torch.core.comms import CommsConfig
+from repro_torch.core.engine import (EdgeEngine, reject_unported,
+                                     score_logprobs)
 from repro_torch.core.mc_dropout import mc_logprobs
 from repro_torch.core.model_adapter import (LeNetAdapter, ModelAdapter,
                                            SSMAdapter)
+from repro_torch.core.pool import ActivePool
 from repro_torch.data.digits import SyntheticDigits
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -159,6 +167,82 @@ class Trainer:
 
 
 @dataclass
+class EdgeDevice:
+    """One edge device of the ``classic`` engine: a local shard, a numpy
+    ``ActivePool`` (seeded ``cfg.seed + 101 · device_id``, the reference's
+    windows draw for draw) and the AL loop, on the trainer's device.
+
+    ``seed_data`` is the fog node's labeled seed set, dispatched with the
+    model: each acquisition trains on seed ∪ acquired."""
+    device_id: int
+    data: SyntheticDigits
+    trainer: Trainer
+    cfg: FederatedALConfig
+    seed_data: Optional[SyntheticDigits] = None
+    pool: ActivePool = field(init=False)
+    history: List[Dict] = field(default_factory=list)
+
+    def __post_init__(self):
+        self.pool = ActivePool.create(
+            len(self.data), seed=self.cfg.seed + 101 * self.device_id)
+
+    def _scores(self, params, window, generator: torch.Generator):
+        """MC-dropout scores ``[W]`` of the window's samples: entropy, BALD
+        and VR through the acquisition-score kernel on ``[T, W, C]``."""
+        cfg, trainer = self.cfg, self.trainer
+        x = trainer._as_tensor(self.data.images[window])[None]
+        logp = trainer.score_logprobs(
+            tree_map(lambda a: a.unsqueeze(0), params), x, generator,
+            cfg.mc_samples)[0]
+        return score_logprobs(cfg.acquisition_fn, logp)
+
+    def run_active_learning(self, params, *,
+                            eval_set: Optional[SyntheticDigits] = None,
+                            generator: Optional[torch.Generator] = None,
+                            acquisitions: Optional[int] = None):
+        """Paper Algorithm 1's inner loop from ``params``: R acquisitions
+        of window draw → MC scoring → top-k → fit on seed ∪ labeled (the
+        Adam state carries over from one acquisition's fit to the next).
+        Appends one history record an acquisition; returns the refined
+        params."""
+        cfg, trainer = self.cfg, self.trainer
+        gen = generator if generator is not None else torch.Generator(
+            device=trainer.device).manual_seed(cfg.seed + self.device_id)
+        opt_state = None
+        R = acquisitions if acquisitions is not None else cfg.acquisitions
+        for r in range(R):
+            window = self.pool.draw_window(cfg.pool_window)
+            if len(window) == 0:
+                break
+            if cfg.acquisition_fn == "random":
+                scores = torch.rand(len(window), generator=gen,
+                                    device=trainer.device)
+            else:
+                scores = self._scores(params, window, gen)
+            k_eff = min(cfg.k_per_acquisition, len(window))
+            self.pool.acquire(window,
+                              acq.select_topk(scores, k_eff).cpu().numpy())
+
+            labeled = self.pool.labeled
+            imgs = self.data.images[labeled]
+            lbls = self.data.labels[labeled]
+            if self.seed_data is not None and len(self.seed_data) > 0:
+                imgs = np.concatenate([self.seed_data.images, imgs])
+                lbls = np.concatenate([self.seed_data.labels, lbls])
+            params, opt_state = trainer.fit(
+                params, imgs, lbls, steps=cfg.train_steps_per_acq,
+                generator=gen, opt_state=opt_state)
+
+            rec = {"device": self.device_id, "acquisition": r + 1,
+                   "n_labeled": int(len(labeled))}
+            if eval_set is not None:
+                rec["test_acc"] = trainer.accuracy(params, eval_set.images,
+                                                   eval_set.labels)
+            self.history.append(rec)
+        return params
+
+
+@dataclass
 class FogNode:
     """Centralized fog node: seed training + dispatch + aggregation."""
     trainer: Trainer
@@ -237,7 +321,6 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
 
 # options of the reference's round functions that later slices port
 _UNPORTED_OPTIONS = {
-    "comms": "Queue 1 item 9 (comms)",
     "hetero": "Queue 1 item 10 (heterogeneous fleets)",
     "async_cfg": "Queue 1 item 12 (async engine)",
     "faults": "Queue 1 item 11 (faults and checkpoints)",
@@ -248,8 +331,6 @@ _UNPORTED_OPTIONS = {
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
 }
 _UNPORTED_ENGINES = {
-    "legacy": "Queue 1 item 8b (legacy and classic engines)",
-    "classic": "Queue 1 item 8b (legacy and classic engines)",
     "async": "Queue 1 item 12 (async engine)",
 }
 
@@ -262,6 +343,17 @@ def _check_engine(engine: str, allowed) -> None:
     if engine not in allowed:
         raise ValueError(f"unknown engine {engine!r}: use "
                          + " | ".join(allowed))
+
+
+def _check_comms_engine(comms: Optional[CommsConfig], engine: str) -> None:
+    """Lossy upload codecs run only in the fused rounds; byte accounting
+    (``compression="none"``) works on every engine."""
+    if comms is not None and comms.compression != "none" \
+            and engine != "fused":
+        raise ValueError(
+            f"comms compression requires engine='fused' (got "
+            f"engine={engine!r}); host-side paths support byte accounting "
+            f"only")
 
 
 def _to_device(tree, device):
@@ -278,36 +370,62 @@ def _round_device(trainer: Optional[Trainer], device):
     return trainer.device
 
 
+def _classic_generator(cfg: FederatedALConfig, device_id: int, device,
+                       round_idx: int = 0) -> torch.Generator:
+    """The generator device ``device_id`` of the classic engine draws from
+    in round ``round_idx`` (the reference's key schedule, as a seed)."""
+    return torch.Generator(device=device).manual_seed(
+        cfg.seed + 7919 * (device_id + 1) + 104729 * round_idx)
+
+
 def run_federated_round(cfg: FederatedALConfig,
                         device_data: List[SyntheticDigits],
                         seed_data: SyntheticDigits, test_set: SyntheticDigits,
                         *, trainer: Optional[Trainer] = None,
                         initial_params=None, record_curves: bool = True,
                         upload_fraction: float = 1.0, round_seed: int = 0,
-                        engine: str = "vmap", comms=None, hetero=None,
+                        engine: str = "vmap",
+                        comms: Optional[CommsConfig] = None, hetero=None,
                         device=None):
-    """One full paper round: FN init → dispatch → per-device AL (all devices
-    batched) → host-side Eq. 1 over the uploads.
+    """One full paper round: FN init → dispatch → per-device AL → host-side
+    Eq. 1 over the uploads.
 
-    ``upload_fraction < 1`` uploads a random subset (``round_seed`` = the
-    round index, so successive rounds draw fresh subsets).  Returns
-    ``(aggregated_params, report)`` with ``initial_acc``,
-    ``aggregated_acc``, ``aggregation`` and ``device_histories``."""
-    _check_engine(engine, ("vmap",))
-    reject_unported("run_federated_round", _UNPORTED_OPTIONS, comms=comms,
-                    hetero=hetero)
+    ``engine``: ``"vmap"`` (all devices batched), ``"legacy"`` (the same
+    step, one device and one acquisition per call) or ``"classic"`` (the
+    ``EdgeDevice`` loop over numpy pools).  ``upload_fraction < 1``
+    uploads a random subset (``round_seed`` = the round index, so
+    successive rounds draw fresh subsets).  Returns ``(aggregated_params,
+    report)`` with ``initial_acc``, ``aggregated_acc``, ``aggregation``,
+    ``device_histories`` and the byte ledger's ``comms`` entry (``comms``
+    sets its accounting policy; compression itself needs the fused
+    engine)."""
+    _check_engine(engine, ("vmap", "legacy", "classic"))
+    _check_comms_engine(comms, engine)
+    reject_unported("run_federated_round", _UNPORTED_OPTIONS, hetero=hetero)
     device = _round_device(trainer, device)
     trainer = trainer or Trainer(cfg, device=device)
     fog = FogNode(trainer, cfg, seed_data, device=device)
     params0 = (_to_device(initial_params, device)
                if initial_params is not None else fog.initial_model())
 
-    eng = EdgeEngine(trainer, cfg, device_data, seed_data,
-                     test_set if record_curves else None, device=device)
-    state, recs = eng.run_round(eng.init_state(params0),
-                                record_curves=record_curves)
-    refined = eng.device_params_list(state)
-    counts = eng.labeled_counts(state)
+    if engine == "classic":
+        devices = [EdgeDevice(i, d, trainer, cfg, seed_data=seed_data)
+                   for i, d in enumerate(device_data)]
+        refined = [dev.run_active_learning(
+            params0, eval_set=test_set if record_curves else None,
+            generator=_classic_generator(cfg, dev.device_id, device))
+            for dev in devices]
+        histories = [dev.history for dev in devices]
+        counts = [len(dev.pool.labeled) for dev in devices]
+    else:
+        eng = EdgeEngine(trainer, cfg, device_data, seed_data,
+                         test_set if record_curves else None, device=device)
+        run = eng.run_round if engine == "vmap" else eng.run_round_legacy
+        state, recs = run(eng.init_state(params0),
+                          record_curves=record_curves)
+        refined = eng.device_params_list(state)
+        histories = eng.histories(recs)
+        counts = eng.labeled_counts(state)
     uploaded_ids = _select_uploads(len(device_data), upload_fraction,
                                    cfg.seed, round_seed)
     agg_params, agg_info = fog.aggregate(
@@ -320,7 +438,11 @@ def run_federated_round(cfg: FederatedALConfig,
         "aggregated_acc": trainer.accuracy(agg_params, test_set.images,
                                            test_set.labels),
         "aggregation": agg_info,
-        "device_histories": eng.histories(recs),
+        "device_histories": histories,
+        "comms": comms_mod.single_round_report(
+            comms, params0, uploaded_ids, len(device_data),
+            new_labels=int(sum(counts)),
+            image_shape=device_data[0].images.shape[1:]),
     }
     return agg_params, report
 
@@ -330,26 +452,43 @@ def run_federated_rounds(cfg: FederatedALConfig,
                          seed_data: SyntheticDigits, test_set: SyntheticDigits,
                          *, rounds: int = 2, trainer: Optional[Trainer] = None,
                          upload_fraction: float = 1.0, engine: str = "vmap",
-                         mesh=None, comms=None, hetero=None, async_cfg=None,
-                         faults=None, guards=None, topology=None, stream=None,
-                         fleet=None, device=None):
+                         mesh=None, comms: Optional[CommsConfig] = None,
+                         hetero=None, async_cfg=None, faults=None,
+                         guards=None, topology=None, stream=None, fleet=None,
+                         device=None):
     """Iterated rounds: each round re-dispatches the aggregated model;
     devices keep their pools (labels accumulate across rounds).
 
-    ``engine="vmap"`` aggregates on the host each round; ``engine="fused"``
-    runs the fog node inside ``EdgeEngine.run_rounds_fused`` (Eq. 1
-    through the fused-aggregation kernel).  Returns ``(params, reports)``,
-    one report per round (``round``, ``aggregated_acc``, ``aggregation``)."""
-    _check_engine(engine, ("vmap", "fused"))
+    ``engine``: ``"vmap"``, ``"legacy"`` and ``"classic"`` aggregate on the
+    host each round; ``"fused"`` runs the fog node inside
+    ``EdgeEngine.run_rounds_fused`` (Eq. 1 through the fused-aggregation
+    kernel), where ``comms=CommsConfig(compression="int8" | "topk")`` or a
+    bfloat16 ``compute_dtype`` also compresses the uploads.  Returns
+    ``(params, reports)``, one report per round (``round``,
+    ``aggregated_acc``, ``aggregation``, and the byte ledger's ``comms``
+    entry)."""
+    _check_engine(engine, ("vmap", "legacy", "classic", "fused"))
+    _check_comms_engine(comms, engine)
     reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
-                    comms=comms, hetero=hetero, async_cfg=async_cfg,
-                    faults=faults, guards=guards, topology=topology,
-                    stream=stream, fleet=fleet)
+                    hetero=hetero, async_cfg=async_cfg, faults=faults,
+                    guards=guards, topology=topology, stream=stream,
+                    fleet=fleet)
     device = _round_device(trainer, device)
     trainer = trainer or Trainer(cfg, device=device)
     fog = FogNode(trainer, cfg, seed_data, device=device)
     params = fog.initial_model()
+    image_shape = device_data[0].images.shape[1:]
     reports = []
+    mask_rows: List[np.ndarray] = []    # [D] participation a round
+    count_rows: List[List[int]] = []    # [D] cumulative labeled a round
+
+    def attach_comms(mask, n_labeled):
+        summary = comms_mod.comms_report(
+            comms, params, mask, n_labeled=n_labeled,
+            agg_accs=[r["aggregated_acc"] for r in reports],
+            image_shape=image_shape)
+        comms_mod.attach_round_comms(reports, summary)
+        return params, reports
 
     if engine == "fused":
         eng = EdgeEngine(trainer, cfg, device_data, seed_data, test_set,
@@ -361,7 +500,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
                                         cfg.seed, rounds)
         _, recs, params = eng.run_rounds_fused(
             eng.init_state(params), rounds, upload_mask=mask,
-            aggregation=cfg.aggregation)
+            aggregation=cfg.aggregation, comms=comms)
         rows = {k: v.cpu().numpy() for k, v in recs.items()}
         for t in range(rounds):
             uploaded = np.nonzero(rows["upload_mask"][t])[0]
@@ -375,31 +514,52 @@ def run_federated_rounds(cfg: FederatedALConfig,
                     "uploaded_devices": uploaded.tolist(),
                 },
             })
-        return params, reports
+        return attach_comms(rows["upload_mask"], rows["n_labeled"])
 
-    eng = EdgeEngine(trainer, cfg, device_data, seed_data,
-                     total_acquisitions=cfg.acquisitions * rounds,
-                     device=device)
-    state = eng.init_state(params)
-    for t in range(rounds):
-        if t > 0:
-            state = eng.set_params(state, params, round_idx=t)
-        state, _ = eng.run_round(state, record_curves=False)
-        refined = eng.device_params_list(state)
-        counts = eng.labeled_counts(state)
+    def aggregate_round(t, refined, counts):
+        nonlocal params
         uploaded_ids = _select_uploads(len(device_data), upload_fraction,
                                        cfg.seed, t)
         params, agg_info = fog.aggregate(
             [refined[i] for i in uploaded_ids], val_set=test_set,
             counts=[counts[i] for i in uploaded_ids])
         agg_info["uploaded_devices"] = uploaded_ids
+        mask = np.zeros((len(device_data),), np.float32)
+        mask[uploaded_ids] = 1.0
+        mask_rows.append(mask)
+        count_rows.append(counts)
         reports.append({
             "round": t,
             "aggregated_acc": trainer.accuracy(params, test_set.images,
                                                test_set.labels),
             "aggregation": agg_info,
         })
-    return params, reports
+
+    if engine == "classic":
+        devices = [EdgeDevice(i, d, trainer, cfg, seed_data=seed_data)
+                   for i, d in enumerate(device_data)]
+        for t in range(rounds):
+            refined = [dev.run_active_learning(
+                params, eval_set=test_set,
+                generator=_classic_generator(cfg, dev.device_id, device, t))
+                for dev in devices]
+            aggregate_round(t, refined, [len(dev.pool.labeled)
+                                         for dev in devices])
+        return attach_comms(np.stack(mask_rows), np.asarray(count_rows))
+
+    # reports carry aggregate metrics only, so the rounds record no curves
+    eng = EdgeEngine(trainer, cfg, device_data, seed_data,
+                     total_acquisitions=cfg.acquisitions * rounds,
+                     device=device)
+    run = eng.run_round if engine == "vmap" else eng.run_round_legacy
+    state = eng.init_state(params)
+    for t in range(rounds):
+        if t > 0:
+            state = eng.set_params(state, params, round_idx=t)
+        state, _ = run(state, record_curves=False)
+        aggregate_round(t, eng.device_params_list(state),
+                        eng.labeled_counts(state))
+    return attach_comms(np.stack(mask_rows), np.asarray(count_rows))
 
 
 # Paper §IV's "massively distributed" regime: many devices, few labels each.
@@ -466,7 +626,8 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
                    n_train: int = 4000, n_test: int = 1000, repeats: int = 1,
                    scenario: Optional[str] = None, num_devices: int = 256,
                    rounds: int = 1, engine: Optional[str] = None, mesh=None,
-                   comms=None, hetero=None, async_cfg=None, faults=None,
+                   comms: Optional[CommsConfig] = None, hetero=None,
+                   async_cfg=None, faults=None,
                    guards=None, topology=None, stream=None, fleet=None,
                    device=None):
     """End-to-end experiment: data from seeds → federated split → rounds.
@@ -479,15 +640,19 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     with ``lm_config`` on token shards of one Markov chain, sized by the
     adapter's vocabulary and at most ``LM_SEQ_LEN`` tokens.  ``repeats``
     reruns with seeds shifted by 1000.  Multi-round repeats return
-    ``{"rounds": [...]}``; single-round repeats return the round report."""
+    ``{"rounds": [...], "comms": telemetry}``
+    (``comms.experiment_telemetry``); single-round repeats return the
+    round report, which carries its own ``"comms"`` entry.  ``comms=
+    CommsConfig(...)`` sets the byte ledger's policy and, on the fused
+    engine, compresses the uploads."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import federated_split
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
     reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
-                    comms=comms, hetero=hetero, async_cfg=async_cfg,
-                    faults=faults, guards=guards, topology=topology,
-                    stream=stream, fleet=fleet)
+                    hetero=hetero, async_cfg=async_cfg, faults=faults,
+                    guards=guards, topology=topology, stream=stream,
+                    fleet=fleet)
     if scenario is not None:
         if scenario in _UNPORTED_SCENARIOS:
             raise NotImplementedError(
@@ -534,11 +699,13 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         if engine == "fused" or rounds > 1:
             _, round_reports = run_federated_rounds(
                 cfg_rep, shards, seed_set, test, rounds=rounds,
-                engine=engine, device=device)
-            reports.append({"rounds": round_reports})
+                engine=engine, comms=comms, device=device)
+            reports.append({
+                "rounds": round_reports,
+                "comms": comms_mod.experiment_telemetry(round_reports)})
         else:
             _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
                                                 test, engine=engine,
-                                                device=device)
+                                                comms=comms, device=device)
             reports.append(rep_report)
     return reports

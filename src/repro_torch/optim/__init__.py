@@ -1,2 +1,6 @@
-"""Functional optimizers over nested-dict params."""
-from repro_torch.optim.optimizers import Optimizer, adam, momentum, sgd
+"""Functional optimizers over nested-dict params, and learning-rate
+schedules."""
+from repro_torch.optim.optimizers import (Optimizer, adam, adamw, momentum,
+                                          sgd)
+from repro_torch.optim.schedules import (constant, cosine_decay,
+                                         warmup_cosine, warmup_linear)

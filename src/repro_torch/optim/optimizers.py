@@ -97,3 +97,10 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return new_p, {"m": tree_map(cast, m), "v": tree_map(cast, v)}
 
     return Optimizer(init, update)
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+          weight_decay: float = 0.1, state_dtype=torch.float32) -> Optimizer:
+    """Adam with decoupled weight decay, at the reference's defaults."""
+    return adam(lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                state_dtype=state_dtype)
