@@ -42,7 +42,13 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    rounds with top-k 0.05 and with a bfloat16 wire, error feedback on:
    params within 1e-4, the card's residuals bit-equal to its own codec
    input minus the CPU codec's output, residuals within 1e-5 but at
-   bounded codec splits, ``comms.codec_splits``), the
+   bounded codec splits, ``comms.codec_splits``), fused LeNet rounds
+   of a heterogeneous fleet (a host straggler schedule with an empty
+   round, a step-limit profile, exp decay, buffering) and of a faulty one
+   (churn, crashes, lost, corrupted and label-noise rounds from the port's
+   numpy fault draws, guards ``"drop"``): staleness, liveness and the
+   fault and guard rows exactly equal, params within 1e-4 but for a
+   bounded few entries within one round's fit reach; the
    reduced SSM LM and a small decoder LM (fused rounds); the
    CPU port is held against the JAX package by the tests;
 8. the paper's main path: ``run_experiment(scenario="paper")`` at the
@@ -64,12 +70,28 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     scenario="lm", rounds=2, n_test=256, comms=CommsConfig(
     compression="int8"))`` (K1, K2, K3), its wall and peak memory (under
     76 GiB), the fog model finite;
+15. the heterogeneous fleet: ``run_experiment(scenario="hetero",
+    num_devices=256, rounds=3)`` (30% stragglers buffered and
+    staleness-decayed, a quarter of the fleet on half the fit steps):
+    wall, the staleness summary beside ``expected_staleness(0.3)``, K1 at
+    least 6 launches and K2 at least 6 (buffering reduces params and the
+    backlog apart, two launches a round);
+16. the faulty fleet: ``run_experiment(scenario="churn",
+    num_devices=256, rounds=3)`` (churn, crashes, lost, x50-corrupted and
+    label-noise rounds, guards ``"drop"``): wall, the faults summary, K1
+    at least 6 and K2 at least 3, every corrupted received upload
+    rejected; then the same fleet's resume: two uninterrupted 3-round runs
+    (do the card's bits repeat?), and 2 rounds, ``save_engine_state``,
+    ``load_engine_state``, ``resume_state(next_round=2)``, 1 round with
+    ``start_round=2``, equal to the uninterrupted run bit for bit when the
+    bits repeat, else within twice the run-to-run gap;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 again under ``torch.profiler`` (wall,
-    device-busy time, idle share, the kernels with the most device time),
-    and phase 13's int8 run and phase 14 with host activity too, for the
-    device time of the codec (the engine's ``comms_codec`` spans);
-15. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-14,
+    four paths of phases 8-10 and phases 15 and 16 again under
+    ``torch.profiler`` (wall, device-busy time, idle share, the kernels
+    with the most device time), and phase 13's int8 run and phase 14
+    with host activity too, for the device time of the codec (the
+    engine's ``comms_codec`` spans);
+17. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-16,
     error, times, bound), and last the ``{"ok": true, "device": ...}``
     line.
 
@@ -1230,6 +1252,245 @@ def run_lm_int8(torch, fed, comms, config, reset, read):
     return wall, launches, peak
 
 
+def check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
+                                          tree_leaves):
+    """Phase 7, heterogeneous and faulty fleets: fused LeNet rounds on the
+    card and on the CPU from the same start, RNG-free (dropout 0, window ≥
+    shard): (a) hetero rounds from a host ``straggler_schedule`` with a
+    round that no device reaches, a step-limit profile, exp decay and
+    buffering; (b) churn rounds with the port's own fault draws (numpy, so
+    the same on both sides) and guards ``"drop"``.  Staleness, liveness
+    and the fault and guard rows exactly equal; params within 1e-4, but
+    for at most ``comms.split_budget`` entries of a leaf, each within the
+    most one round's fit can move an entry (steps × lr), the rule of the
+    CPU parity tests: Adam turns the two runs' different gradient sums
+    into steps of either sign where a gradient is near 0, and few arrivals
+    leave them unaveraged."""
+    import numpy as np
+    from repro_torch.core import comms
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.core.faults import REPORT_KEYS, FaultConfig, GuardConfig
+    from repro_torch.core.hetero import HeteroConfig, straggler_schedule
+
+    cfg, mcfg, shards, seed_set, test, p0 = small_lenet_fleet(
+        torch, fed, interop, lenet)
+    rounds = 3
+    arrivals = straggler_schedule(3, 0.4, 2, rounds)
+    arrivals[1] = 0.0
+    runs = {
+        "hetero": (dict(upload_mask=arrivals, hetero=HeteroConfig(
+            decay="exp", step_limits=(2, 5, 3))), ("staleness",)),
+        "churn, guards drop": (dict(
+            faults=FaultConfig(death_rate=0.3, birth_rate=0.5,
+                               crash_rate=0.2, drop_rate=0.2,
+                               corrupt_rate=0.4, label_noise_rate=0.2,
+                               seed=3),
+            guards=GuardConfig(policy="drop", norm_factor=3.0)),
+            REPORT_KEYS + ("accepted",)),
+    }
+    reach = cfg.acquisitions * cfg.train_steps_per_acq * cfg.lr
+    for name, (kw, exact) in runs.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            eng = EdgeEngine(fed.Trainer(cfg, model_cfg=mcfg, device=dev),
+                             cfg, shards, seed_set, test,
+                             total_acquisitions=rounds * cfg.acquisitions,
+                             device=dev)
+            st, recs, fin = eng.run_rounds_fused(
+                eng.init_state(interop.params_from_jax(p0, dev)), rounds,
+                **kw)
+            out[dev] = ({k: v.cpu().numpy() for k, v in recs.items()},
+                        tree_leaves(interop.params_to_jax(fin)))
+        (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
+        for key in exact + ("upload_mask", "n_labeled"):
+            if not np.array_equal(rg[key], rc[key]):
+                raise AssertionError(f"{name}: card and CPU {key} rows "
+                                     f"differ: {rg[key]} vs {rc[key]}")
+        err, far = 0.0, 0
+        for a, b in zip(pg, pc, strict=True):
+            gap = np.abs(a - b)
+            err, n_far = max(err, float(gap.max())), int((gap > 1e-4).sum())
+            far += n_far
+            if n_far > comms.split_budget(gap.size) or gap.max() > reach:
+                raise AssertionError(f"{name}: card vs CPU params differ by "
+                                     f"up to {gap.max()}, {n_far} entries "
+                                     "beyond 1e-4")
+        shown = {k: rg[k].sum().item() for k in exact if k != "staleness"}
+        if "staleness" in rg:
+            shown["staleness"] = rg["staleness"].tolist()
+        print(f"  card vs CPU fused LeNet rounds, {name}: rows {exact} "
+              f"equal ({shown}), params max_abs_err {err:.3e}, {far} "
+              "entries beyond 1e-4")
+
+
+class ChurnFleet:
+    """``scenario="churn"`` at ``num_devices`` on the card, built as
+    ``run_experiment`` builds it (data, seed fit, engine) but kept open,
+    so rounds can be chained, checkpointed and resumed."""
+
+    def __init__(self, torch, fed, num_devices: int, rounds: int):
+        from repro_torch.core.engine import EdgeEngine
+        from repro_torch.data.digits import make_digit_dataset
+        from repro_torch.data.federated_split import dirichlet_split
+
+        cfg = fed.churn_config(num_devices)
+        full = make_digit_dataset(fed.MASSIVE_SAMPLES_PER_DEVICE
+                                  * num_devices, seed=cfg.seed)
+        test = make_digit_dataset(1000, seed=cfg.seed + 5)
+        seed_set = make_digit_dataset(cfg.initial_train, seed=cfg.seed + 11)
+        shards = dirichlet_split(full, num_devices,
+                                 alpha=fed.HETERO_DIRICHLET_ALPHA,
+                                 seed=cfg.seed)
+        trainer = fed.Trainer(cfg)
+        self.params0 = fed.FogNode(trainer, cfg, seed_set).initial_model()
+        self.engine = EdgeEngine(trainer, cfg, shards, seed_set, test,
+                                 total_acquisitions=cfg.acquisitions * rounds)
+        self.kw = dict(aggregation=cfg.aggregation,
+                       faults=fed.DEFAULT_FAULTS, guards=fed.DEFAULT_GUARDS)
+
+    def run(self, state, rounds: int, start_round: int = 0):
+        return self.engine.run_rounds_fused(state, rounds,
+                                            start_round=start_round,
+                                            **self.kw)
+
+    def start(self):
+        return self.engine.init_state(self.params0)
+
+
+def run_gap(torch, a, b) -> tuple:
+    """``(largest |a − b| over the two runs' fog models, recs and states,
+    the first place they differ or None)``; a run is ``(state, recs,
+    fog)``."""
+    from repro_torch.tree import tree_items
+    worst, where = 0.0, None
+    (sa, ra, fa), (sb, rb, fb) = a, b
+    items = lambda tree: dict(tree_items(tree))
+    fog_b = items(fb)
+    state_b = items(tuple(sb._replace(rng=())))
+    pairs = [(f"fog/{p}", x, fog_b[p]) for p, x in tree_items(fa)]
+    pairs += [(f"recs/{k}", ra[k], rb[k]) for k in sorted(ra)]
+    pairs += [(f"state/{p}", x, state_b[p])
+              for p, x in tree_items(tuple(sa._replace(rng=())))]
+    for name, x, y in pairs:
+        if torch.equal(x, y):
+            continue
+        gap = float((x.double() - y.double()).abs().max())
+        if where is None:
+            where = name
+        worst = max(worst, gap if gap == gap else float("inf"))
+    return worst, where
+
+
+def run_scenario(torch, fed, name, reset, read, least):
+    """Phases 15-16: ``run_experiment(scenario=name, num_devices=256,
+    rounds=3)``: at least ``least`` launches of each kernel, weights
+    summing to 1 in every round, finite accuracies and fog model.
+    Returns (report, wall s, launches)."""
+    reset()
+    t0 = time.perf_counter()
+    with FogModels(fed) as fog:
+        rep = fed.run_experiment(scenario=name, num_devices=256,
+                                 rounds=3)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    fog.check_finite(torch, name)
+    del fog
+    print(f"  {name}: aggregated_acc per round "
+          f"{[r['aggregated_acc'] for r in rep['rounds']]} wall {wall:.3f} s "
+          f"launches {launches}")
+    for k, n in least.items():
+        if launches[k] < n:
+            raise AssertionError(f"{name}: {launches[k]} {k} launches, the "
+                                 f"path needs {n}")
+    for r in rep["rounds"]:
+        wsum = sum(r["aggregation"]["weights"])
+        acc = r["aggregated_acc"]
+        if not (abs(wsum - 1.0) < 1e-4 and acc == acc and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"{name} round {r['round']}: weights sum "
+                                 f"{wsum}, acc {acc}")
+    return rep, wall, launches
+
+
+def run_hetero_path(torch, fed, reset, read):
+    """Phase 15: ``scenario="hetero"`` at D = 256 for 3 rounds (K1 2 and
+    K2 2 a round: buffering hetero reduces params and the pending backlog
+    apart), its staleness beside ``expected_staleness(0.3)``."""
+    from repro_torch.core.hetero import expected_staleness
+    rep, wall, launches = run_scenario(
+        torch, fed, "hetero", reset, read,
+        {"acquisition_scores": 6, "fused_aggregation": 6})
+    st = rep["staleness"]
+    print(f"  hetero staleness: mean {st['mean']:.4f} (expected_staleness"
+          f"(0.3) = {expected_staleness(0.3):.4f} at the steady state), "
+          f"per round {st['per_round_mean']}, max {st['max']}, stale "
+          f"fraction {st['stale_fraction']:.4f}")
+    return wall, launches, st
+
+
+def run_churn_path(torch, fed, reset, read, tree_leaves):
+    """Phase 16: ``scenario="churn"`` at D = 256 for 3 rounds (K1 2 and
+    K2 1 a round), every corrupted received upload rejected (x50 under
+    ``norm_factor`` 8), then a resume at the same size: two uninterrupted
+    3-round runs show whether the card repeats its bits; 2 rounds,
+    ``save_engine_state``, ``load_engine_state``, ``resume_state(2)`` and
+    1 round with ``start_round=2`` must then equal the uninterrupted run
+    bit for bit, else within twice the run-to-run gap."""
+    import tempfile
+    from repro_torch.checkpoint import load_engine_state, save_engine_state
+
+    rep, wall, launches = run_scenario(
+        torch, fed, "churn", reset, read,
+        {"acquisition_scores": 6, "fused_aggregation": 3})
+    print(f"  churn faults: {rep['faults']}")
+    seen = 0
+    for r in rep["rounds"]:
+        for i, c in enumerate(r["corrupted"]):
+            if c > 0:
+                seen += 1
+                if not r["rejected"][i] > 0:
+                    raise AssertionError(f"churn round {r['round']}: device "
+                                         f"{i}'s corrupted upload accepted")
+    if not seen:
+        raise AssertionError("churn: no corrupted upload reached the fog")
+
+    fleet = ChurnFleet(torch, fed, 256, 3)
+    t0 = time.perf_counter()
+    first = fleet.run(fleet.start(), 3)
+    second = fleet.run(fleet.start(), 3)
+    repeat_gap, where = run_gap(torch, first, second)
+    state, _, _ = fleet.run(fleet.start(), 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/churn.msgpack"
+        save_engine_state(path, state, metadata={"next_round": 2})
+        nbytes = Path(path).stat().st_size
+        state, meta = load_engine_state(path)
+    state = fleet.engine.resume_state(state, next_round=meta["next_round"])
+    s1, r1, f1 = fleet.run(state, 1, start_round=meta["next_round"])
+    s3, r3, f3 = first
+    resumed = (s1, {k: v[-1:] for k, v in r1.items()}, f1)
+    uninterrupted = (s3, {k: v[-1:] for k, v in r3.items()}, f3)
+    resume_gap, resume_where = run_gap(torch, uninterrupted, resumed)
+    secs = time.perf_counter() - t0
+    print(f"  churn resume: checkpoint {nbytes} bytes; two uninterrupted "
+          f"runs {'bit-equal' if where is None else 'differ'} (largest gap "
+          f"{repeat_gap:.3e}, first at {where}); 2 + 1 resumed rounds vs 3: "
+          f"largest gap {resume_gap:.3e} (first at {resume_where}); "
+          f"{secs:.3f} s")
+    if where is None:
+        if resume_where is not None:
+            raise AssertionError(f"churn resume differs from the "
+                                 f"uninterrupted run at {resume_where} "
+                                 f"(gap {resume_gap}) although the card "
+                                 "repeats its bits")
+    elif not resume_gap <= 2 * repeat_gap:
+        raise AssertionError(f"churn resume gap {resume_gap} > twice the "
+                             f"run-to-run gap {repeat_gap}")
+    return wall, launches, rep["faults"], {
+        "repeat_gap": repeat_gap, "repeat_first_diff": where,
+        "resume_gap": resume_gap, "checkpoint_bytes": nbytes}
+
+
 def profile_codec_path(torch, fn, span):
     """Run ``fn`` once under the profiler with host and device activity:
     ``(wall s, device-busy s, device ms inside the ``span`` ranges, the
@@ -1318,6 +1579,8 @@ def main() -> int:
     check_host_engines_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_comms_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves,
                                    tree_map)
+    check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
+                                          tree_leaves)
     check_small_lm_rounds_against_cpu(torch, fed, interop)
 
     def reset():
@@ -1394,6 +1657,14 @@ def main() -> int:
     b_int8 = run_lm_int8(torch, fed, comms, configs["B"], reset, read)
     torch.cuda.empty_cache()
 
+    print("phase 15: hetero path (scenario='hetero', D=256, 3 rounds)")
+    hetero = run_hetero_path(torch, fed, reset, read)
+    torch.cuda.empty_cache()
+    print("phase 16: churn path (scenario='churn', D=256, 3 rounds) and a "
+          "2 + 1-round resume")
+    churn = run_churn_path(torch, fed, reset, read, tree_leaves)
+    torch.cuda.empty_cache()
+
     print("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
     t0 = time.perf_counter()
@@ -1418,9 +1689,15 @@ def main() -> int:
         ("A", lambda: fed.run_experiment(configs["A"], scenario="lm",
                                          rounds=2, n_test=256)),
         ("B", lambda: fed.run_experiment(configs["B"], scenario="lm",
-                                         rounds=2, n_test=256)))
+                                         rounds=2, n_test=256)),
+        ("hetero", lambda: fed.run_experiment(
+            scenario="hetero", num_devices=256, rounds=3)),
+        ("churn", lambda: fed.run_experiment(
+            scenario="churn", num_devices=256, rounds=3)))
+    path_profiles = {}
     for name, fn in profiled:
         wall, busy, top = profile_path(torch, fn)
+        path_profiles[name] = {"wall_s": wall, "busy_s": busy}
         print(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
               f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}")
         torch.cuda.empty_cache()
@@ -1443,7 +1720,8 @@ def main() -> int:
 
     all_launches = [paper_launches, massive_launches, *lm_launches.values(),
                     *(v[1] for v in host.values()),
-                    *(v[1] for v in codecs.values()), b_int8[1]]
+                    *(v[1] for v in codecs.values()), b_int8[1],
+                    hetero[1], churn[1]]
     for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
         entry["launches"] = sum(run[entry["name"]] for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
@@ -1455,6 +1733,11 @@ def main() -> int:
                                     "launches": b_int8[1],
                                     "peak_gib": b_int8[2]},
                       "codec_profiles": codec_profiles,
+                      "path_profiles": path_profiles,
+                      "hetero": {"wall_s": hetero[0], "launches": hetero[1],
+                                 "staleness": hetero[2]},
+                      "churn": {"wall_s": churn[0], "launches": churn[1],
+                                "faults": churn[2], "resume": churn[3]},
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

@@ -25,8 +25,12 @@ payload itself (int8 codes with scales, bfloat16 or float32 values).
 Leaves the adapter keeps per device (``model_adapter.excluded_paths``: the
 SSM adapter's recurrent state) stay out of Eq. 1: they carry no mass into
 the reduce, each device keeps its own value at re-dispatch, and the fog
-model reports device 0's.  The hetero / faults / guards / churn /
-topology / fleet options raise ``NotImplementedError`` naming their
+model reports device 0's.  ``hetero=`` (``core.hetero``) turns the
+participation mask into an arrival mask with straggler buffering,
+staleness-decayed weights and per-device step budgets; ``faults=`` /
+``guards=`` / ``live_mask=`` (``core.faults``) add churn, crashes, lost
+and corrupted uploads, label noise and the fog node's guards.  The
+topology and fleet options raise ``NotImplementedError`` naming their
 ROADMAP item.
 
 Samples keep their dtype and rank end to end: float32 images ``[28, 28,
@@ -39,7 +43,9 @@ threefry bits, so parity tests run the RNG-free configuration (dropout
 off, the window covering the whole pool).  The legacy loop draws from the
 same one generator, device after device, so it equals the vmap round on
 that configuration only.  The int8 codec draws its rounding uniforms from
-a generator of its own a round (``comms_generator``).
+a generator of its own a round (``comms_generator``); the participation,
+straggler and fault draws are numpy's, seeded with the absolute round
+index, so the card and the CPU see the same masks.
 """
 from __future__ import annotations
 
@@ -52,6 +58,8 @@ from repro_torch.core import acquisition as acq
 from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import hetero as hetero_mod
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
 from repro_torch.kernels.acquisition_scores import acquisition_scores
@@ -68,10 +76,6 @@ CODEC_SPAN = "comms_codec"
 
 # options of the reference's run_rounds_fused that later slices port
 _UNPORTED_FUSED = {
-    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
-    "faults": "Queue 1 item 11 (faults and checkpoints)",
-    "guards": "Queue 1 item 11 (faults and checkpoints)",
-    "live_mask": "Queue 1 item 11 (faults and checkpoints)",
     "topology": "Queue 1 item 13 (fog topology and sharding)",
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
 }
@@ -89,14 +93,21 @@ def reject_unported(where: str, table: Dict[str, str], **options) -> None:
 
 class EngineState(NamedTuple):
     """Per-device state, stacked along a leading device axis D.  ``rng`` is
-    the generator the next round draws from; ``residual`` is the comms
-    error-feedback buffer (a ``[D, ...]`` tree like ``params``, or ``()``
-    while no codec with error feedback has run)."""
+    the generator the next round draws from (None in a state restored
+    from a checkpoint until ``EdgeEngine.resume_state``).  The extension
+    buffers default to ``()`` and exist only while their feature runs:
+    ``residual`` the comms error-feedback buffer and ``pending`` the
+    stragglers' undelivered deltas (``[D, ...]`` trees like ``params``),
+    ``staleness`` their ages in rounds (``[D]`` int32), ``live`` the churn
+    liveness (``[D]`` float32, 1 = live)."""
     params: Any           # [D, ...] tree
     opt_state: Any        # [D, ...] tree
     pool: vpool.VPool     # [D, ...] fields
-    rng: torch.Generator
+    rng: Optional[torch.Generator]
     residual: Any = ()    # [D, ...] tree or ()
+    pending: Any = ()     # [D, ...] tree or ()
+    staleness: Any = ()   # [D] int32 or ()
+    live: Any = ()        # [D] float32 or ()
 
 
 def stack_device_data(device_data: Sequence, device):
@@ -149,32 +160,59 @@ def score_logprobs(name: str, logp: torch.Tensor) -> torch.Tensor:
     return acq.acquisition_scores(name, logp)
 
 
+def _rows(vec: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``vec [D]`` shaped to broadcast over the rows of ``x [D, ...]``."""
+    return vec.reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def _where_rows(vec, on_true, on_false):
+    """Per-device select over stacked trees: rows where ``vec [D] > 0``
+    take ``on_true``'s."""
+    return tree_map(lambda a, b: torch.where(_rows(vec, a) > 0, a, b),
+                    on_true, on_false)
+
+
+def _backlog(leaf, prev, pend, up):
+    """A device's upload ``b = leaf − prev (+ pend)``, rows ``[D, ...]``;
+    the stragglers' buffer ``pend`` (or None) is updated IN PLACE to 0
+    where the device uploaded (``up``) and to ``b`` where it did not."""
+    b = leaf - prev
+    if pend is not None:
+        b += pend
+        pend.copy_(torch.where(up, 0.0, b))
+    return b
+
+
 def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
-                     generator):
+                     generator, pending=None):
     """Eq. 1 in delta form over a lossy wire: ``params_prev[0] + Σ_i w_i ·
-    C(Δ_i + e_i)`` with ``Δ = params − params_prev``, reduced by the
-    fused-aggregation kernel from the wire payload.  ``residual`` (the
-    error-feedback tree, or None without it) is updated IN PLACE to ``(Δ +
-    e) − C(Δ + e)`` on the rows of devices that uploaded (``upload [D] >
-    0``); the others keep theirs.  Excluded leaves carry no delta (their
-    residual stays 0) and report device 0's value.  Works leaf by leaf, so
-    one leaf's temporaries are alive at a time."""
+    C(b_i + e_i)`` with the backlog ``b = params − params_prev (+
+    pending)``, reduced by the fused-aggregation kernel from the wire
+    payload.  ``residual`` (the error-feedback tree, or None without it)
+    is updated IN PLACE to ``(b + e) − C(b + e)`` on the rows of devices
+    that uploaded (``upload [D] > 0``); the others keep theirs.
+    ``pending`` (the stragglers' buffer, or None) is updated IN PLACE to
+    0 where the device uploaded and to ``b`` elsewhere.  Excluded leaves
+    carry no delta (their buffers stay 0) and report device 0's value.
+    Works leaf by leaf, so one leaf's temporaries are alive at a time."""
     prev = dict(tree_items(params_prev))
     res = None if residual is None else dict(tree_items(residual))
+    pend = None if pending is None else dict(tree_items(pending))
     payload, scales = {}, {}
     # the profiler's span for the codec's own device work (not the reduce)
     with torch.profiler.record_function(CODEC_SPAN):
         for path, leaf in tree_items(params):
             if path in excl:
                 continue
-            to_send = leaf - prev[path]
+            up = _rows(upload, leaf) > 0
+            to_send = _backlog(leaf, prev[path],
+                               None if pend is None else pend[path], up)
             if res is not None:
                 to_send += res[path]
             payload[path], scales[path] = comms_mod.encode_rows(
                 cfg, to_send, generator)
             if res is not None:
                 sent = comms_mod.decode_rows(payload[path], scales[path])
-                up = upload.reshape((-1,) + (1,) * (leaf.dim() - 1)) > 0
                 res[path].copy_(torch.where(up, to_send.sub_(sent),
                                             res[path]))
                 del sent
@@ -186,6 +224,38 @@ def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
     return tree_map_with_path(
         lambda path, leaf: (leaf[0] if path in excl
                             else prev[path][0] + reduced[path]), params)
+
+
+def _upload_rows(cfg, params, params_prev, residual, upload, excl,
+                 generator, pending=None):
+    """The received uploads of a round with faults or guards, as float32
+    rows ``{path: [D, ...]}`` over the leaves outside ``excl``: each
+    device's backlog ``b`` (as in ``_delta_aggregate``), through the codec
+    ``cfg`` when one is set (encoded, then decoded as the fog node
+    reconstructs it).  Updates ``residual`` from the clean payload and
+    ``pending`` IN PLACE, as ``_delta_aggregate`` does.  The guards need
+    every leaf's rows before any weight exists, so the whole tree is kept."""
+    prev = dict(tree_items(params_prev))
+    res = None if residual is None else dict(tree_items(residual))
+    pend = None if pending is None else dict(tree_items(pending))
+    sent = {}
+    for path, leaf in tree_items(params):
+        if path in excl:
+            continue
+        up = _rows(upload, leaf) > 0
+        backlog = _backlog(leaf, prev[path],
+                           None if pend is None else pend[path], up)
+        if cfg is None:
+            sent[path] = backlog
+            continue
+        with torch.profiler.record_function(CODEC_SPAN):
+            to_send = backlog + res[path] if res is not None else backlog
+            dec = comms_mod.decode_rows(*comms_mod.encode_rows(
+                cfg, to_send, generator))
+            if res is not None:
+                res[path].copy_(torch.where(up, to_send - dec, res[path]))
+        sent[path] = dec
+    return sent
 
 
 class EdgeEngine:
@@ -238,11 +308,21 @@ class EdgeEngine:
 
     def set_params(self, state: EngineState, params0, *,
                    round_idx: int = 0) -> EngineState:
-        """Re-dispatch an aggregated model to the fleet (pools and residuals
-        persist, optimizer state and generator reset)."""
+        """Re-dispatch an aggregated model to the fleet (pools and the
+        extension buffers persist, optimizer state and generator reset)."""
         params = broadcast_params(params0, self.num_devices)
-        return EngineState(params, self.trainer.opt.init(params), state.pool,
-                           self.device_generator(round_idx), state.residual)
+        return state._replace(params=params,
+                              opt_state=self.trainer.opt.init(params),
+                              rng=self.device_generator(round_idx))
+
+    def resume_state(self, state: EngineState, *,
+                     next_round: int) -> EngineState:
+        """Ready a restored checkpoint for continuation: install the
+        generator the uninterrupted run would draw from in round
+        ``next_round`` (= rounds completed so far), and nothing else.  Pass
+        the same value as ``start_round`` on the continuation call; the
+        resumed run then equals the uninterrupted one."""
+        return state._replace(rng=self.device_generator(next_round))
 
     def comms_generator(self, round_idx: int = 0) -> torch.Generator:
         """The generator the int8 codec of round ``round_idx`` (absolute
@@ -277,10 +357,14 @@ class EdgeEngine:
             params, x_win, gen, cfg.mc_samples))
 
     def _acquisition(self, params, opt_state, pool, gen, *,
-                     record_curves: bool, devices: slice = slice(None)):
+                     record_curves: bool, devices: slice = slice(None),
+                     labels=None, step_limit=None):
         """One acquisition for the ``devices`` of the fleet at once (all of
-        them by default; the state trees hold just those rows)."""
-        images, labels = self.images[devices], self.labels[devices]
+        them by default; the state trees hold just those rows).  ``labels``
+        (default the shards' own) are the labels the fit trains on;
+        ``step_limit`` ``[D]`` caps each device's fit steps."""
+        images = self.images[devices]
+        labels = self.labels[devices] if labels is None else labels
         D = images.shape[0]
         rows = torch.arange(D, device=self.device)[:, None]
         win_idx, win_valid = vpool.draw_window(pool, gen, self.window)
@@ -305,7 +389,8 @@ class EdgeEngine:
         m = torch.cat([torch.ones((D, m0), device=self.device),
                        pool.labeled_valid.float()], dim=1)
         params, opt_state = self.trainer.fit_steps(
-            params, opt_state, x, y, m, gen, self.cfg.train_steps_per_acq)
+            params, opt_state, x, y, m, gen, self.cfg.train_steps_per_acq,
+            step_limit=step_limit)
 
         rec = {"n_labeled": vpool.n_labeled(pool),
                "selected": torch.where(sel_valid,
@@ -316,11 +401,13 @@ class EdgeEngine:
                 self.test_labels)
         return params, opt_state, pool, rec
 
-    def _round(self, params, opt_state, pool, gen, *, record_curves: bool):
+    def _round(self, params, opt_state, pool, gen, *, record_curves: bool,
+               labels=None, step_limit=None):
         recs = []
         for _ in range(self.cfg.acquisitions):
             params, opt_state, pool, rec = self._acquisition(
-                params, opt_state, pool, gen, record_curves=record_curves)
+                params, opt_state, pool, gen, record_curves=record_curves,
+                labels=labels, step_limit=step_limit)
             recs.append(rec)
         stacked = {k: torch.stack([r[k] for r in recs], dim=1)
                    for k in recs[0]}                       # [D, R, ...]
@@ -337,8 +424,8 @@ class EdgeEngine:
         params, opt_state, pool, recs = self._round(
             state.params, state.opt_state, state.pool, state.rng,
             record_curves=record)
-        return EngineState(params, opt_state, pool, state.rng,
-                           state.residual), recs
+        return state._replace(params=params, opt_state=opt_state,
+                              pool=pool), recs
 
     def run_round_legacy(self, state: EngineState, *,
                          record_curves: bool = True):
@@ -371,8 +458,8 @@ class EdgeEngine:
         opt_state = tree_map(cat, *[c[1] for c in carries])
         pool = vpool.VPool(*map(cat, *[c[2] for c in carries]))
         recs = {k: torch.cat([r[k] for r in recs]) for k in recs[0]}
-        return EngineState(params, opt_state, pool, state.rng,
-                           state.residual), recs
+        return state._replace(params=params, opt_state=opt_state,
+                              pool=pool), recs
 
     def run_rounds_fused(self, state: EngineState, rounds: int, *,
                          upload_mask=None, upload_fraction: float = 1.0,
@@ -404,13 +491,48 @@ class EdgeEngine:
         follows).  Byte accounting stays on the host
         (``comms.comms_report`` over the returned ``recs``).
 
+        ``hetero`` (``core.hetero.HeteroConfig``) makes the mask an
+        ARRIVAL mask: from ``hetero.straggler_rate > 0`` (the
+        ``upload_fraction`` draw at ``1 − rate``; passing a mask or a
+        fraction as well is an error) or from an explicit ``upload_mask``
+        host schedule (e.g. ``hetero.straggler_schedule``).  With
+        ``buffer_stale`` a missing device's delta waits in
+        ``state.pending`` and folds in on arrival; arrivals are weighted
+        ``α_i ∝ raw_i · decay(staleness_i)`` (ages in ``state.staleness``
+        and ``recs["staleness"]``); the compute profile caps per-device
+        fit steps.  Without a codec, faults or guards, a buffering round
+        reduces ``params`` and ``pending`` directly (two kernel launches),
+        which equals the synchronous round when nothing is pending.
+        ``aggregation="optimal"`` has no weights to decay and is refused.
+
+        ``faults`` (``core.faults.FaultConfig``) injects churn, crashes,
+        lost uploads, wire corruption and label-noise bursts; ``guards``
+        (``core.faults.GuardConfig``) rejects non-finite and norm-outlier
+        uploads (``"drop"``) or clips outliers back to the threshold
+        (``"clip"``); ``policy="off"`` is no guards.  ``live_mask``
+        (``[rounds, D]`` or ``[D]``, truthy = live) drives churn from a
+        host schedule (``core.faults.liveness_schedule``); passing it with
+        ``faults.death_rate`` / ``birth_rate`` > 0 is an error.  Faults or
+        guards aggregate in delta form over the whole tree: the uploads
+        of live, uncrashed devices go through the codec, the
+        error-feedback residual updates from the clean payload, the
+        received rows are corrupted, judged, clipped or zeroed, and Eq. 1
+        normalizes over the accepted arrivals.  A round that accepts
+        nothing keeps the previous fog model.  Dead and crashed devices
+        keep their params, optimizer state and pool rows; the fleet's
+        generator is one a round for all devices, so it has no rows to
+        freeze.  The fault draws come from ``faults.round_draws``
+        (numpy, at the absolute round index).
+
         Returns ``(state, recs, aggregated_params)``: ``recs`` holds
         ``[rounds, ...]`` rows ``weights``, ``upload_mask``, ``n_labeled``
-        (and ``device_accs`` / ``agg_acc`` with a validation set);
+        (and ``device_accs`` / ``agg_acc`` with a validation set;
+        ``staleness`` with hetero; ``live`` under churn; ``crashed`` /
+        ``dropped`` / ``corrupted`` with faults; ``rejected`` /
+        ``clipped`` / ``upload_norms`` / ``accepted`` with guards);
         ``aggregated_params`` is the last round's fog model (its excluded
         leaves are device 0's)."""
-        reject_unported("run_rounds_fused", _UNPORTED_FUSED, hetero=hetero,
-                        faults=faults, guards=guards, live_mask=live_mask,
+        reject_unported("run_rounds_fused", _UNPORTED_FUSED,
                         topology=topology, fleet=fleet)
         if aggregation not in _AGGREGATIONS:
             raise ValueError(f"unknown aggregation {aggregation!r}: "
@@ -420,8 +542,46 @@ class EdgeEngine:
             raise ValueError(
                 f"aggregation={aggregation!r} scores devices on a validation "
                 "set; construct EdgeEngine with test_set")
+        if hetero is not None and aggregation == "optimal":
+            raise ValueError(
+                "aggregation='optimal' picks one argmax model and has no "
+                "Eq. 1 weights for staleness decay to act on; use "
+                "average | weighted | fedavg_n with hetero")
+        if guards is not None and guards.policy == "off":
+            guards = None
+        if aggregation == "optimal" and (
+                faults is not None or guards is not None
+                or live_mask is not None):
+            raise ValueError(
+                "aggregation='optimal' picks one argmax model, not Eq. 1 "
+                "weights, so liveness masking and guard rejection have "
+                "nothing to renormalize; use average | weighted | fedavg_n "
+                "with faults/guards/live_mask")
+        if live_mask is not None and faults is not None and faults.has_churn:
+            raise ValueError(
+                "pass either an explicit live_mask host schedule or "
+                "faults.death_rate/birth_rate for the churn process, not "
+                "both (set the rates to 0 to drive churn from the schedule)")
+        if state.rng is None:
+            raise ValueError("the state has no generator (a restored "
+                             "checkpoint): call resume_state first")
         self._check_capacity(state, rounds=rounds)
         D = self.num_devices
+        dev = self.device
+        step_limit = None
+        if hetero is not None:
+            limits = hetero_mod.device_step_limits(
+                hetero, D, self.cfg.train_steps_per_acq)
+            if limits is not None:
+                step_limit = torch.as_tensor(limits, device=dev)
+            if hetero.straggler_rate > 0.0:
+                if upload_mask is not None or upload_fraction < 1.0:
+                    raise ValueError(
+                        "pass either hetero.straggler_rate or an explicit "
+                        "upload_mask/upload_fraction participation model, "
+                        "not both (set straggler_rate=0 to drive hetero "
+                        "rounds from a host schedule)")
+                upload_fraction = 1.0 - hetero.straggler_rate
         if upload_mask is not None:
             m = np.asarray(upload_mask, np.float32)
             if m.ndim == 1:
@@ -436,15 +596,40 @@ class EdgeEngine:
                 for t in range(start_round, start_round + rounds)])
         else:
             m = np.ones((rounds, D), np.float32)
-        masks = torch.as_tensor(np.asarray(m, np.float32), device=self.device)
+        masks = torch.as_tensor(np.asarray(m, np.float32), device=dev)
+        live_rows = None
+        if live_mask is not None:
+            lm = np.asarray(live_mask, np.float32)
+            if lm.ndim == 1:
+                lm = np.broadcast_to(lm, (rounds, D))
+            if lm.shape != (rounds, D):
+                raise ValueError(f"live_mask shape {lm.shape} != "
+                                 f"{(rounds, D)}")
+            live_rows = torch.as_tensor(np.array(lm), device=dev)
 
+        # extension buffers: created as zeros when their feature turns on,
+        # dropped when it is off; the loop updates residual and pending in
+        # place, so never the caller's
+        fresh = lambda buf, make: (tree_map(torch.clone, buf)
+                                   if tree_leaves(buf) else make())
         codec = comms if comms is not None and comms.lossy else None
-        residual = None
+        residual = pending = staleness = live = None
         if codec is not None and codec.error_feedback:
-            # the loop updates the buffer in place: never the caller's
-            residual = (tree_map(torch.clone, state.residual)
-                        if tree_leaves(state.residual)
-                        else tree_map(torch.zeros_like, state.params))
+            residual = fresh(state.residual,
+                             lambda: tree_map(torch.zeros_like, state.params))
+        buffering = hetero is not None and hetero.buffer_stale
+        if buffering:
+            pending = fresh(state.pending,
+                            lambda: tree_map(torch.zeros_like, state.params))
+        if hetero is not None:
+            staleness = fresh(state.staleness, lambda: torch.zeros(
+                (D,), dtype=torch.int32, device=dev))
+        churn = live_mask is not None or faults is not None
+        if churn:
+            live = fresh(state.live, lambda: torch.ones((D,), device=dev))
+        guarded = faults is not None or guards is not None
+        keeps_model = hetero is not None or churn or guards is not None
+        rates = faults_mod.rates_vector(faults)
 
         counters.count_dispatch()
         trainer = self.trainer
@@ -454,12 +639,53 @@ class EdgeEngine:
         recs: Dict[str, list] = {}
         agg = None
         for t in range(rounds):
+            r_abs = start_round + t
             if t > 0:
-                gen = self.device_generator(start_round + t)
-            params_prev = params
-            params, opt_state, pool, _ = self._round(
-                params, opt_state, pool, gen, record_curves=False)
+                gen = self.device_generator(r_abs)
             mask = masks[t]
+            row = {}
+            # ---- liveness and fault draws (numpy, absolute round index)
+            if faults is not None:
+                draws = faults_mod.round_draws(
+                    faults, r_abs, D, self.labels.shape[1],
+                    trainer.adapter.num_classes)
+            if live_rows is not None:
+                live = live_rows[t]
+            elif faults is not None:
+                live = faults_mod.update_liveness(
+                    live, draws.u_death, draws.u_birth,
+                    rates[faults_mod.RATE_DEATH],
+                    rates[faults_mod.RATE_BIRTH])
+            # active = survived the round's local work
+            active = live
+            labels = None
+            if faults is not None:
+                crash, drop, corrupt, noise = faults_mod.draw_fault_masks(
+                    torch.as_tensor(draws.u_faults, device=dev), rates)
+                row["crashed"] = crash if live is None else crash * live
+                active = (1.0 - crash) if active is None \
+                    else active * (1.0 - crash)
+                labels = torch.where(
+                    noise[:, None] > 0,
+                    torch.as_tensor(draws.noisy_labels, device=dev),
+                    self.labels)
+            params_prev = params
+            params2, opt2, pool2, _ = self._round(
+                params, opt_state, pool, gen, record_curves=False,
+                labels=labels, step_limit=step_limit)
+            if active is not None:
+                # dead or crashed devices lose the round
+                params = _where_rows(active, params2, params)
+                opt_state = _where_rows(active, opt2, opt_state)
+                pool = vpool.VPool(*_where_rows(active, tuple(pool2),
+                                                tuple(pool)))
+            else:
+                params, opt_state, pool = params2, opt2, pool2
+            del params2, opt2, pool2
+            # upload: the device transmitted; recv: the fog node received
+            upload = mask if active is None else mask * active
+            recv = upload if faults is None else upload * (1.0 - drop)
+
             counts = vpool.n_labeled(pool).float()
             accs = (agg_mod.stacked_accuracy(trainer.eval_logits, params,
                                              self.test_images,
@@ -476,16 +702,96 @@ class EdgeEngine:
                                      torch.full_like(accs, -float("inf")))
                 raw = torch.nn.functional.one_hot(
                     torch.argmax(masked), D).float()
-            w = agg_mod.masked_normalize(raw, mask)
             with torch.no_grad():
-                if codec is None:
-                    agg = _aggregate_shared(params, w, excl)
-                else:
+                sent = None
+                if guarded:
+                    # the guards judge whole uploads: build every leaf's
+                    # received rows before any weight exists
+                    sent = _upload_rows(
+                        codec, params, params_prev, residual, upload, excl,
+                        self.comms_generator(r_abs), pending)
+                    if faults is not None:
+                        sent = faults_mod.corrupt_stacked(
+                            faults.corrupt_mode, sent, corrupt * recv,
+                            rates[faults_mod.RATE_CORRUPT_SCALE])
+                accept = recv
+                if guards is not None:
+                    norms = faults_mod.stacked_norms(sent)
+                    reject, clip, scale = faults_mod.guard_verdict(
+                        norms, faults_mod.stacked_finite(sent), recv,
+                        policy=guards.policy, factor=guards.norm_factor)
+                    accept = recv * (1.0 - reject)
+                    if guards.policy == "clip":
+                        sent = tree_map(lambda a: a * _rows(scale, a), sent)
+                    sent = _where_rows(accept, sent,
+                                       tree_map(torch.zeros_like, sent))
+                    row.update(rejected=reject, clipped=clip,
+                               upload_norms=norms, accepted=accept)
+                decayed = raw
+                if hetero is not None:
+                    row["staleness"] = staleness
+                    decayed = raw * agg_mod.staleness_decay(
+                        staleness, kind=hetero.decay,
+                        rate=hetero.decay_rate)
+                w = agg_mod.masked_normalize(decayed, accept)
+                accept_any = bool(accept.sum() > 0)
+                if keeps_model and not accept_any:
+                    # nothing accepted: aggregate nothing (the uniform
+                    # fallback would fold in unweighted work, and every
+                    # banked backlog twice)
+                    w = torch.zeros_like(w)
+
+                if guarded:
+                    reduced = (agg_mod.aggregate_stacked(sent, w)
+                               if sent else {})
+                    del sent
+                    prev = dict(tree_items(params_prev))
+                    agg = tree_map_with_path(
+                        lambda path, leaf: (
+                            leaf[0] if path in excl
+                            else prev[path][0] + reduced[path]), params)
+                    del reduced
+                elif codec is not None:
                     agg = _delta_aggregate(
-                        codec, params, params_prev, residual, w, mask, excl,
-                        self.comms_generator(start_round + t))
+                        codec, params, params_prev, residual, w, upload,
+                        excl, self.comms_generator(r_abs), pending)
+                else:
+                    # direct Eq. 1, plus Σ w_i · pending_i for buffering
+                    # hetero: equal to the delta form since Σw = 1, and
+                    # the synchronous round itself when nothing is pending
+                    agg = _aggregate_shared(params, w, excl)
+                    if pending is not None:
+                        held = {path: leaf for path, leaf
+                                in tree_items(pending) if path not in excl}
+                        late = agg_mod.aggregate_stacked(held, w) \
+                            if held else {}
+                        agg = tree_map_with_path(
+                            lambda path, leaf: (leaf if path in excl
+                                                else leaf + late[path]), agg)
+                        # transmitted backlogs clear, missed rounds bank
+                        # this round's work
+                        prev = dict(tree_items(params_prev))
+                        for path, leaf in tree_items(params):
+                            if path in held:
+                                _backlog(leaf, prev[path], held[path],
+                                         _rows(upload, leaf) > 0)
+                if keeps_model and not accept_any:
+                    # the fog node re-dispatches its previous model
+                    prev = dict(tree_items(params_prev))
+                    agg = tree_map_with_path(
+                        lambda path, leaf: (leaf[0] if path in excl
+                                            else prev[path][0]), params)
             del params_prev
-            row = {"weights": w, "upload_mask": mask, "n_labeled": counts}
+            if hetero is not None:
+                # dead devices do not age: their backlog gets no staler
+                aging = 1 if live is None else live.to(torch.int32)
+                staleness = torch.where(upload > 0, 0, staleness + aging)
+            if churn:
+                row["live"] = live
+            if faults is not None:
+                row["dropped"] = drop * upload
+                row["corrupted"] = corrupt * recv
+            row.update(weights=w, upload_mask=mask, n_labeled=counts)
             if has_val:
                 row["device_accs"] = accs
                 row["agg_acc"] = agg_mod.stacked_accuracy(
@@ -500,8 +806,10 @@ class EdgeEngine:
                 params, broadcast_params(agg, D))
             opt_state = trainer.opt.init(params)
         out = {k: torch.stack(v) for k, v in recs.items()}
-        return (EngineState(params, opt_state, pool, gen,
-                            () if residual is None else residual), out, agg)
+        none = lambda b: () if b is None else b
+        return (EngineState(params, opt_state, pool, gen, none(residual),
+                            none(pending), none(staleness), none(live)),
+                out, agg)
 
     # ------------------------------------------------------------ reporting
     def histories(self, recs) -> List[List[dict]]:

@@ -13,9 +13,10 @@ The port has the reference's four round-synchronous engines: ``vmap``
 one device and one acquisition per call), ``classic`` (the ``EdgeDevice``
 loop over a numpy ``ActivePool``), and ``fused`` (``EdgeEngine
 .run_rounds_fused``, Eq. 1 through the fused-aggregation kernel, with
-optional compressed uploads).  ``run_experiment`` runs the ``paper``,
-``massive`` and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet for an LM
-adapter (``core.model_adapter``) on token shards (``data.lm``).
+optional compressed uploads, heterogeneous fleets, faults and guards).
+``run_experiment`` runs the ``paper``, ``massive``, ``hetero``, ``churn``
+and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet for an LM adapter
+(``core.model_adapter``) on token shards (``data.lm``).
 Everything runs on ``device`` (default ``"cuda"``; see
 ``repro_torch.device``).  Reports carry the reference's keys, the byte
 ledger's ``"comms"`` entry (``core.comms``) included.
@@ -31,11 +32,15 @@ import torch
 from repro_torch.core import acquisition as acq
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import hetero as hetero_mod
 from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
 from repro_torch.core.comms import CommsConfig
 from repro_torch.core.engine import (EdgeEngine, reject_unported,
                                      score_logprobs)
+from repro_torch.core.faults import FaultConfig, GuardConfig
+from repro_torch.core.hetero import HeteroConfig
 from repro_torch.core.mc_dropout import mc_logprobs
 from repro_torch.core.model_adapter import (LeNetAdapter, ModelAdapter,
                                            SSMAdapter)
@@ -106,16 +111,30 @@ class Trainer:
     def init_params(self, generator: torch.Generator):
         return self.adapter.init(generator)
 
-    def fit_steps(self, params, opt_state, x, y, mask, generator, steps: int):
+    def fit_steps(self, params, opt_state, x, y, mask, generator, steps: int,
+                  step_limit: Optional[torch.Tensor] = None):
         """``steps`` full-batch Adam steps of every device at once on
         ``x [D, M, ...]``, ``y``/``mask [D, M]``; the step index restarts
-        at 0 each call (the reference's ``fit_steps_raw``)."""
+        at 0 each call (the reference's ``fit_steps_raw``).
+
+        ``step_limit`` (``[D]`` ints, optional) is the heterogeneous-fleet
+        compute profile (``core.hetero``): device i keeps the updates of
+        its first ``step_limit[i]`` steps only, on params and optimizer
+        state alike, so its result equals a shorter fit while the fleet
+        still trains in one batched pass."""
         for i in range(steps):
             p = tree_map(lambda a: a.detach().requires_grad_(True), params)
             loss = self.adapter.loss(p, x, y, mask, generator).sum()
             grads = torch.autograd.grad(loss, tree_leaves(p))
-            params, opt_state = self.opt.update(
+            new_p, new_o = self.opt.update(
                 tree_unflatten_like(p, grads), opt_state, params, i)
+            if step_limit is not None:
+                keep = step_limit > i
+                pick = lambda n, o: torch.where(
+                    keep.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+                new_p = tree_map(pick, new_p, params)
+                new_o = tree_map(pick, new_o, opt_state)
+            params, opt_state = new_p, new_o
         return params, opt_state
 
     @torch.no_grad()
@@ -321,10 +340,7 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
 
 # options of the reference's round functions that later slices port
 _UNPORTED_OPTIONS = {
-    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
     "async_cfg": "Queue 1 item 12 (async engine)",
-    "faults": "Queue 1 item 11 (faults and checkpoints)",
-    "guards": "Queue 1 item 11 (faults and checkpoints)",
     "topology": "Queue 1 item 13 (fog topology and sharding)",
     "mesh": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
@@ -345,15 +361,51 @@ def _check_engine(engine: str, allowed) -> None:
                          + " | ".join(allowed))
 
 
+# the engines that run each in-round feature (the reference's table;
+# engine="async" is Queue 1 item 12 and raises before these checks)
+_FEATURE_ENGINES = {
+    "comms compression": ("fused",),
+    "hetero": ("fused", "async"),
+    "faults": ("fused", "async"),
+    "guards": ("fused", "async"),
+}
+
+
+def _require_engine(feature: str, engine: str, why: str) -> None:
+    allowed = _FEATURE_ENGINES[feature]
+    if engine not in allowed:
+        names = " or ".join(f"'{e}'" for e in allowed)
+        raise ValueError(f"{feature} requires engine={names} "
+                         f"(got engine={engine!r}); {why}")
+
+
 def _check_comms_engine(comms: Optional[CommsConfig], engine: str) -> None:
     """Lossy upload codecs run only in the fused rounds; byte accounting
     (``compression="none"``) works on every engine."""
-    if comms is not None and comms.compression != "none" \
-            and engine != "fused":
-        raise ValueError(
-            f"comms compression requires engine='fused' (got "
-            f"engine={engine!r}); host-side paths support byte accounting "
-            f"only")
+    if comms is not None and comms.compression != "none":
+        _require_engine("comms compression", engine,
+                        "host-side paths support byte accounting only")
+
+
+def _check_hetero_engine(hetero: Optional[HeteroConfig], engine: str) -> None:
+    """Straggler buffering, staleness and the compute profile live in the
+    fused rounds only."""
+    if hetero is not None:
+        _require_engine(
+            "hetero", engine,
+            "use run_federated_rounds(..., engine='fused', hetero=...)")
+
+
+def _check_faults_engine(faults: Optional[FaultConfig],
+                         guards: Optional[GuardConfig], engine: str) -> None:
+    """Churn, fault injection and the aggregation guards live in the fused
+    rounds only."""
+    if faults is not None:
+        _require_engine("faults", engine,
+                        "fault injection runs inside the fused rounds")
+    if guards is not None:
+        _require_engine("guards", engine,
+                        "aggregation guards run inside the fused rounds")
 
 
 def _to_device(tree, device):
@@ -401,7 +453,7 @@ def run_federated_round(cfg: FederatedALConfig,
     engine)."""
     _check_engine(engine, ("vmap", "legacy", "classic"))
     _check_comms_engine(comms, engine)
-    reject_unported("run_federated_round", _UNPORTED_OPTIONS, hetero=hetero)
+    _check_hetero_engine(hetero, engine)
     device = _round_device(trainer, device)
     trainer = trainer or Trainer(cfg, device=device)
     fog = FogNode(trainer, cfg, seed_data, device=device)
@@ -466,13 +518,19 @@ def run_federated_rounds(cfg: FederatedALConfig,
     bfloat16 ``compute_dtype`` also compresses the uploads.  Returns
     ``(params, reports)``, one report per round (``round``,
     ``aggregated_acc``, ``aggregation``, and the byte ledger's ``comms``
-    entry)."""
+    entry).  On ``"fused"``, ``hetero=HeteroConfig(...)`` runs
+    straggler-tolerant rounds and adds each round's per-device
+    ``staleness``; ``faults=FaultConfig(...)`` / ``guards=GuardConfig(...)``
+    add churn, fault injection and the fog node's guards, and the rows
+    ``live`` / ``crashed`` / ``dropped`` / ``corrupted`` / ``rejected`` /
+    ``clipped`` of the features on (``EdgeEngine.run_rounds_fused``)."""
     _check_engine(engine, ("vmap", "legacy", "classic", "fused"))
     _check_comms_engine(comms, engine)
     reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
-                    hetero=hetero, async_cfg=async_cfg, faults=faults,
-                    guards=guards, topology=topology, stream=stream,
+                    async_cfg=async_cfg, topology=topology, stream=stream,
                     fleet=fleet)
+    _check_hetero_engine(hetero, engine)
+    _check_faults_engine(faults, guards, engine)
     device = _round_device(trainer, device)
     trainer = trainer or Trainer(cfg, device=device)
     fog = FogNode(trainer, cfg, seed_data, device=device)
@@ -500,8 +558,11 @@ def run_federated_rounds(cfg: FederatedALConfig,
                                         cfg.seed, rounds)
         _, recs, params = eng.run_rounds_fused(
             eng.init_state(params), rounds, upload_mask=mask,
-            aggregation=cfg.aggregation, comms=comms)
+            aggregation=cfg.aggregation, comms=comms, hetero=hetero,
+            faults=faults, guards=guards)
         rows = {k: v.cpu().numpy() for k, v in recs.items()}
+        extra = [k for k in ("staleness",) + faults_mod.REPORT_KEYS
+                 if k in rows]
         for t in range(rounds):
             uploaded = np.nonzero(rows["upload_mask"][t])[0]
             reports.append({
@@ -513,6 +574,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
                     "weights": rows["weights"][t].tolist(),
                     "uploaded_devices": uploaded.tolist(),
                 },
+                **{k: rows[k][t].tolist() for k in extra},
             })
         return attach_comms(rows["upload_mask"], rows["n_labeled"])
 
@@ -580,6 +642,45 @@ def massive_config(num_devices: int = 256, *, seed: int = 0,
     return FederatedALConfig(**base)
 
 
+# Non-IID shard concentration of the hetero and churn scenarios.
+HETERO_DIRICHLET_ALPHA = 0.5
+
+# Heterogeneous-fleet scenario defaults (scenario="hetero"): 30% of uploads
+# miss their round (buffered and staleness-decayed, not discarded) and a
+# quarter of the fleet is limited to half the local fit steps.
+DEFAULT_HETERO = HeteroConfig(
+    straggler_rate=0.3, decay="exp", decay_rate=0.5, buffer_stale=True,
+    slow_fraction=0.25, slow_steps_fraction=0.5)
+
+# Fault-tolerant-fleet scenario defaults (scenario="churn"): devices churn
+# (death 0.1 / birth 0.4 a round, ~20% of slots dark in steady state), 5%
+# of device rounds crash, 5% of uploads drop on the wire, 5% arrive
+# corrupted (x50 norm), 5% of device rounds train on scrambled labels; the
+# fog node's norm and finiteness guards drop what they reject.
+DEFAULT_FAULTS = FaultConfig(
+    death_rate=0.1, birth_rate=0.4, crash_rate=0.05, drop_rate=0.05,
+    corrupt_rate=0.05, corrupt_mode="scale", corrupt_scale=50.0,
+    label_noise_rate=0.05)
+DEFAULT_GUARDS = GuardConfig(policy="drop", norm_factor=8.0)
+
+
+def hetero_config(num_devices: int = 64, *, seed: int = 0,
+                  **overrides) -> FederatedALConfig:
+    """Preset for the heterogeneous-fleet regime: the small-budget fleet
+    of ``massive_config`` on ``dirichlet_split`` shards; pair with a
+    ``HeteroConfig`` (``DEFAULT_HETERO`` in ``scenario="hetero"``)."""
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
+def churn_config(num_devices: int = 64, *, seed: int = 0,
+                 **overrides) -> FederatedALConfig:
+    """Preset for the fault-tolerant-fleet regime: the small-budget fleet
+    on ``dirichlet_split`` shards; pair with ``FaultConfig`` /
+    ``GuardConfig`` (``DEFAULT_FAULTS`` / ``DEFAULT_GUARDS`` in
+    ``scenario="churn"``)."""
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
 # LM scenario defaults (scenario="lm"): token geometry of the synthetic
 # Markov source (data.lm) and of the reduced SSM adapter the preset builds.
 LM_VOCAB = 256
@@ -606,17 +707,20 @@ def lm_config(num_devices: int = 8, *, seed: int = 0,
     return massive_config(num_devices, seed=seed, **overrides)
 
 
-# scenario → (native engine, preset maker or None = explicit cfg, split)
+# scenario → (native engine, preset maker or None = explicit cfg, split,
+# default {hetero | faults | guards: config} the caller's options override)
 SCENARIOS: Dict[str, tuple] = {
-    "paper": ("vmap", None, "digits"),
-    "massive": ("fused", massive_config, "digits"),
-    "lm": ("fused", lm_config, "lm"),
+    "paper": ("vmap", None, "digits", {}),
+    "massive": ("fused", massive_config, "digits", {}),
+    "hetero": ("fused", hetero_config, "dirichlet",
+               {"hetero": DEFAULT_HETERO}),
+    "churn": ("fused", churn_config, "dirichlet",
+              {"faults": DEFAULT_FAULTS, "guards": DEFAULT_GUARDS}),
+    "lm": ("fused", lm_config, "lm", {}),
 }
 # the reference's other scenarios, and the ROADMAP item that ports each
 _UNPORTED_SCENARIOS = {
-    "hetero": "Queue 1 item 10 (heterogeneous fleets)",
     "async": "Queue 1 item 12 (async engine)",
-    "churn": "Queue 1 item 11 (faults and checkpoints)",
     "fog": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
 }
@@ -626,10 +730,11 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
                    n_train: int = 4000, n_test: int = 1000, repeats: int = 1,
                    scenario: Optional[str] = None, num_devices: int = 256,
                    rounds: int = 1, engine: Optional[str] = None, mesh=None,
-                   comms: Optional[CommsConfig] = None, hetero=None,
-                   async_cfg=None, faults=None,
-                   guards=None, topology=None, stream=None, fleet=None,
-                   device=None):
+                   comms: Optional[CommsConfig] = None,
+                   hetero: Optional[HeteroConfig] = None, async_cfg=None,
+                   faults: Optional[FaultConfig] = None,
+                   guards: Optional[GuardConfig] = None, topology=None,
+                   stream=None, fleet=None, device=None):
     """End-to-end experiment: data from seeds → federated split → rounds.
 
     ``scenario="paper"`` runs Algorithm 1 with an explicit ``cfg`` on
@@ -644,14 +749,25 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     (``comms.experiment_telemetry``); single-round repeats return the
     round report, which carries its own ``"comms"`` entry.  ``comms=
     CommsConfig(...)`` sets the byte ledger's policy and, on the fused
-    engine, compresses the uploads."""
+    engine, compresses the uploads.
+
+    ``scenario="hetero"`` runs ``hetero_config(num_devices)`` on non-IID
+    ``dirichlet_split`` shards (alpha ``HETERO_DIRICHLET_ALPHA``) on the
+    fused engine with ``DEFAULT_HETERO``; each repeat adds a
+    ``"staleness"`` summary (``hetero.summarize_staleness``).
+    ``scenario="churn"`` runs ``churn_config(num_devices)`` on the same
+    shards with ``DEFAULT_FAULTS`` and ``DEFAULT_GUARDS``
+    (``guards=GuardConfig(policy="off")`` is the unguarded control); each
+    repeat adds a ``"faults"`` summary (``faults.report_summary``).  An
+    explicit ``hetero=`` / ``faults=`` / ``guards=`` wins over the
+    scenario's default."""
     from repro_torch.data.digits import make_digit_dataset
-    from repro_torch.data.federated_split import federated_split
+    from repro_torch.data.federated_split import (dirichlet_split,
+                                                  federated_split)
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
     reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
-                    hetero=hetero, async_cfg=async_cfg, faults=faults,
-                    guards=guards, topology=topology, stream=stream,
+                    async_cfg=async_cfg, topology=topology, stream=stream,
                     fleet=fleet)
     if scenario is not None:
         if scenario in _UNPORTED_SCENARIOS:
@@ -661,15 +777,20 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         if scenario not in SCENARIOS:
             raise ValueError(f"unknown scenario {scenario!r}: use "
                              + " | ".join(SCENARIOS))
-        native, preset, split = SCENARIOS[scenario]
+        native, preset, split, dynamics = SCENARIOS[scenario]
         if preset is not None:
             cfg = preset(num_devices) if cfg is None else cfg
             n_train = MASSIVE_SAMPLES_PER_DEVICE * cfg.num_devices
         engine = native if engine is None else engine
+        # the scenario's dynamics fill in only what the caller left None
+        hetero = dynamics.get("hetero") if hetero is None else hetero
+        faults = dynamics.get("faults") if faults is None else faults
+        guards = dynamics.get("guards") if guards is None else guards
     else:
         split = "digits"
     if cfg is None:
-        raise ValueError("pass cfg or a preset scenario (massive | lm)")
+        raise ValueError("pass cfg or a preset scenario (massive | hetero | "
+                         "churn | lm)")
     engine = "vmap" if engine is None else engine
     device = resolve_device(device)
 
@@ -694,18 +815,33 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
             full = make_digit_dataset(n_train, seed=seed)
             test = make_digit_dataset(n_test, seed=seed + 5)
             seed_set = make_digit_dataset(cfg.initial_train, seed=seed + 11)
-            shards = federated_split(full, cfg.num_devices, seed=seed)
+            if split == "dirichlet":
+                shards = dirichlet_split(full, cfg.num_devices,
+                                         alpha=HETERO_DIRICHLET_ALPHA,
+                                         seed=seed)
+            else:
+                shards = federated_split(full, cfg.num_devices, seed=seed)
         cfg_rep = replace(cfg, seed=seed)
         if engine == "fused" or rounds > 1:
             _, round_reports = run_federated_rounds(
                 cfg_rep, shards, seed_set, test, rounds=rounds,
-                engine=engine, comms=comms, device=device)
-            reports.append({
+                engine=engine, comms=comms, hetero=hetero, faults=faults,
+                guards=guards, device=device)
+            rep_report = {
                 "rounds": round_reports,
-                "comms": comms_mod.experiment_telemetry(round_reports)})
+                "comms": comms_mod.experiment_telemetry(round_reports)}
+            if hetero is not None:
+                rep_report["staleness"] = hetero_mod.summarize_staleness(
+                    [r["staleness"] for r in round_reports])
+            if faults is not None or guards is not None:
+                rep_report["faults"] = faults_mod.report_summary(
+                    round_reports)
+            reports.append(rep_report)
         else:
+            _check_faults_engine(faults, guards, engine)
             _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
                                                 test, engine=engine,
-                                                comms=comms, device=device)
+                                                comms=comms, hetero=hetero,
+                                                device=device)
             reports.append(rep_report)
     return reports

@@ -253,14 +253,14 @@ def test_unported_options_raise(call):
     shards = federated_split(make_digit_dataset(20, seed=0), 2, seed=0)
     seed_set, test = make_digit_dataset(6, seed=1), make_digit_dataset(5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "comms":   # comms is ported; hetero still waits
+        if call == "comms":   # comms and hetero are ported; topology waits
             run_federated_rounds(cfg, shards, seed_set, test, engine="fused",
-                                 hetero=object(), device="cpu")
+                                 topology=object(), device="cpu")
         elif call == "engine":  # legacy and classic are ported
             run_federated_round(cfg, shards, seed_set, test,
                                 engine="async", device="cpu")
-        elif call == "scenario":
-            run_experiment(scenario="hetero", device="cpu")
+        elif call == "scenario":  # hetero and churn are ported
+            run_experiment(scenario="async", device="cpu")
         else:  # the LM adapters are ported; the MoE decoder is not yet
             from repro_torch.core.model_adapter import DecoderLMAdapter
             from repro_torch.models.config import ModelConfig
@@ -270,7 +270,8 @@ def test_unported_options_raise(call):
 
 def test_port_imports_no_jax():
     """Importing every module of the port (and chip_smoke.py) loads no
-    ``jax`` and nothing of ``repro``."""
+    ``jax``, nothing of ``repro`` and no ``msgpack`` (the card's machine
+    has none: the checkpoints use the port's own codec)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -279,7 +280,8 @@ def test_port_imports_no_jax():
         "sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'jaxlib' or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'msgpack' or m.startswith('msgpack.')]\n"
         "assert not bad, bad\n"
         "print('ok', len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
