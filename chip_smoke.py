@@ -48,7 +48,12 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    (churn, crashes, lost, corrupted and label-noise rounds from the port's
    numpy fault draws, guards ``"drop"``): staleness, liveness and the
    fault and guard rows exactly equal, params within 1e-4 but for a
-   bounded few entries within one round's fit reach; the
+   bounded few entries within one round's fit reach; 4 events of the
+   async loop on 8 devices (a quorum of 2 with a 0.5 s timer over
+   exponential latencies with a 10x skew, churn, crashes, drops, NaN
+   corruption and label noise, guards ``"drop"``): arrivals, simulated
+   times, timer events, staleness and the fault and guard rows exactly
+   equal, the fog model, params and banked deltas by the same rule; the
    reduced SSM LM and a small decoder LM (fused rounds); the
    CPU port is held against the JAX package by the tests;
 8. the paper's main path: ``run_experiment(scenario="paper")`` at the
@@ -85,13 +90,19 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     ``load_engine_state``, ``resume_state(next_round=2)``, 1 round with
     ``start_round=2``, equal to the uninterrupted run bit for bit when the
     bits repeat, else within twice the run-to-run gap;
+17. the async event loop: ``run_experiment(scenario="async",
+    num_devices=256, rounds=8)`` (``default_async(256)``: a FedBuff quorum
+    of 64, a 4 s timer, exponential latencies with a 10x skew, poly decay
+    0.5, over 8 events): wall, simulated seconds, mean arrivals, timer
+    events and staleness, K1 exactly 16 launches (2 an event), K2 one an
+    accepting event, weights summing to 1 on those, the fog model finite;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 and phases 15 and 16 again under
+    four paths of phases 8-10 and phases 15-17 again under
     ``torch.profiler`` (wall, device-busy time, idle share, the kernels
     with the most device time), and phase 13's int8 run and phase 14
     with host activity too, for the device time of the codec (the
     engine's ``comms_codec`` spans);
-17. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-16,
+18. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-17,
     error, times, bound), and last the ``{"ok": true, "device": ...}``
     line.
 
@@ -1323,6 +1334,82 @@ def check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
               "entries beyond 1e-4")
 
 
+def check_async_events_against_cpu(torch, fed, interop, lenet, tree_leaves):
+    """Phase 7, the async event loop: 4 events of an RNG-free LeNet fleet
+    of 8 devices (dropout 0, a window of 64 over shards of at most 53) on
+    the card and on the CPU from the same start, a FedBuff quorum of 2
+    with a 0.5 s timer over exponential latencies with a 10x skew, churn,
+    crashes, drops, corruption and label noise from the port's numpy
+    draws, guards ``"drop"``.  The corruption is NaN, which the guards
+    reject at any arrival count: a lone x50 arrival is its own median,
+    passes the guards on both sides and would multiply the card's and the
+    CPU's float32 gaps by 50.  Arrivals, ``sim_time``, timer events,
+    staleness and the fault and guard rows exactly equal; the fog model,
+    params and the banked deltas within 1e-4 by the per-device-delta rule
+    of phase 7's hetero and churn rounds."""
+    import numpy as np
+    from repro_torch.core import comms
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.core.faults import REPORT_KEYS, FaultConfig, GuardConfig
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    D, events = 8, 4
+    cfg = fed.FederatedALConfig(num_devices=D, initial_train=10,
+                                acquisitions=2, k_per_acquisition=4,
+                                pool_window=64, mc_samples=4,
+                                train_steps_per_acq=5)
+    mcfg = lenet.LeNetConfig(p_conv=0.0, p_fc=0.0)
+    shards = federated_split(make_digit_dataset(320, seed=0), D, seed=0)
+    seed_set, test = make_digit_dataset(10, seed=11), make_digit_dataset(
+        200, seed=5)
+    p0 = interop.params_to_jax(lenet.LeNet.init(
+        torch.Generator().manual_seed(0), mcfg))
+    kw = dict(async_cfg=AsyncConfig(quorum=2, timer=0.5, dist="exp",
+                                    mean_latency=1.0, latency_skew=10.0),
+              faults=FaultConfig(death_rate=0.3, birth_rate=0.5,
+                                 crash_rate=0.2, drop_rate=0.2,
+                                 corrupt_rate=0.4, corrupt_mode="nan",
+                                 label_noise_rate=0.2, seed=3),
+              guards=GuardConfig(policy="drop", norm_factor=3.0))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        eng = EdgeEngine(fed.Trainer(cfg, model_cfg=mcfg, device=dev), cfg,
+                         shards, seed_set, test,
+                         total_acquisitions=events * cfg.acquisitions,
+                         device=dev)
+        st, recs, fog = eng.run_async(
+            eng.init_state(interop.params_from_jax(p0, dev)), events, **kw)
+        out[dev] = ({k: v.cpu().numpy() for k, v in recs.items()},
+                    [tree_leaves(interop.params_to_jax(t))
+                     for t in (fog, st.params, st.pending)])
+    (rg, pg), (rc, pc) = out["cuda"], out["cpu"]
+    exact = ("upload_mask", "arrivals", "sim_time", "timer_fired",
+             "staleness", "n_labeled", "accepted") + REPORT_KEYS
+    for key in exact:
+        if not np.array_equal(rg[key], rc[key]):
+            raise AssertionError(f"async: card and CPU {key} rows differ: "
+                                 f"{rg[key]} vs {rc[key]}")
+    reach = cfg.acquisitions * cfg.train_steps_per_acq * cfg.lr
+    err, far = 0.0, 0
+    for name, leaves_g, leaves_c in zip(("fog", "params", "pending"), pg, pc):
+        for a, b in zip(leaves_g, leaves_c, strict=True):
+            gap = np.abs(a - b)
+            err, n_far = max(err, float(gap.max())), int((gap > 1e-4).sum())
+            far += n_far
+            if n_far > comms.split_budget(gap.size) or gap.max() > reach:
+                raise AssertionError(f"async: card vs CPU {name} differ by "
+                                     f"up to {gap.max()}, {n_far} entries "
+                                     "beyond 1e-4")
+    shown = {k: rg[k].sum().item() for k in REPORT_KEYS + ("accepted",)}
+    print(f"  card vs CPU async events: sim_time {rg['sim_time'].tolist()}, "
+          f"timer {rg['timer_fired'].tolist()}, arrivals "
+          f"{rg['arrivals'].tolist()}, rows equal ({shown}), stale arrivals "
+          f"{int((rg['staleness'] * rg['upload_mask']).sum())}; fog, params "
+          f"and pending max_abs_err {err:.3e}, {far} entries beyond 1e-4")
+
+
 class ChurnFleet:
     """``scenario="churn"`` at ``num_devices`` on the card, built as
     ``run_experiment`` builds it (data, seed fit, engine) but kept open,
@@ -1491,6 +1578,51 @@ def run_churn_path(torch, fed, reset, read, tree_leaves):
         "resume_gap": resume_gap, "checkpoint_bytes": nbytes}
 
 
+def run_async_path(torch, fed, reset, read):
+    """Phase 17: ``run_experiment(scenario="async", num_devices=256,
+    rounds=8)``, ``default_async(256)`` over 8 events.  Each event runs a
+    whole-fleet candidate round (K1 2 launches at R = 2) and, when it
+    accepts an upload, one Eq. 1 reduce (K2 1 launch over LeNet's 10
+    leaves): K1 exactly 16, K2 the accepting events (at least 1), weights
+    summing to 1 within 1e-5 on those events and to 0 on the others, the
+    final accuracy in [0, 1], the fog model finite."""
+    reset()
+    t0 = time.perf_counter()
+    with FogModels(fed) as fog:
+        rep = fed.run_experiment(scenario="async", num_devices=256,
+                                 rounds=8)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    fog.check_finite(torch, "async")
+    del fog
+    tel = rep["async"]
+    accepting = sum(1 for r in rep["rounds"] if r["arrivals"] > 0)
+    print(f"  async: wall {wall:.3f} s, launches {launches}; "
+          f"{tel['sim_seconds_total']:.4f} simulated s over "
+          f"{tel['events']} events (per event {tel['sim_time_per_event']}), "
+          f"mean arrivals {tel['mean_arrivals_per_event']}, timer events "
+          f"{tel['timer_fired_events']}, accepting events {accepting}, "
+          f"final_acc {tel['final_acc']}")
+    print(f"  async staleness: {tel['staleness']}")
+    if launches["acquisition_scores"] != 16:
+        raise AssertionError(f"async: {launches['acquisition_scores']} K1 "
+                             "launches, 8 events of R = 2 make 16")
+    if not 1 <= accepting == launches["fused_aggregation"]:
+        raise AssertionError(f"async: {launches['fused_aggregation']} K2 "
+                             f"launches for {accepting} accepting events")
+    for r in rep["rounds"]:
+        wsum = sum(r["aggregation"]["weights"])
+        want = 1.0 if r["arrivals"] > 0 else 0.0
+        if not abs(wsum - want) < 1e-5:
+            raise AssertionError(f"async event {r['round']}: weights sum "
+                                 f"{wsum}, arrivals {r['arrivals']}")
+    acc = tel["final_acc"]
+    if not (acc == acc and 0.0 <= acc <= 1.0):
+        raise AssertionError(f"async: final accuracy {acc}")
+    return wall, launches, tel
+
+
 def profile_codec_path(torch, fn, span):
     """Run ``fn`` once under the profiler with host and device activity:
     ``(wall s, device-busy s, device ms inside the ``span`` ranges, the
@@ -1581,6 +1713,7 @@ def main() -> int:
                                    tree_map)
     check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
                                           tree_leaves)
+    check_async_events_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_small_lm_rounds_against_cpu(torch, fed, interop)
 
     def reset():
@@ -1664,6 +1797,9 @@ def main() -> int:
           "2 + 1-round resume")
     churn = run_churn_path(torch, fed, reset, read, tree_leaves)
     torch.cuda.empty_cache()
+    print("phase 17: async path (scenario='async', D=256, 8 events)")
+    async_path = run_async_path(torch, fed, reset, read)
+    torch.cuda.empty_cache()
 
     print("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
@@ -1693,7 +1829,9 @@ def main() -> int:
         ("hetero", lambda: fed.run_experiment(
             scenario="hetero", num_devices=256, rounds=3)),
         ("churn", lambda: fed.run_experiment(
-            scenario="churn", num_devices=256, rounds=3)))
+            scenario="churn", num_devices=256, rounds=3)),
+        ("async", lambda: fed.run_experiment(
+            scenario="async", num_devices=256, rounds=8)))
     path_profiles = {}
     for name, fn in profiled:
         wall, busy, top = profile_path(torch, fn)
@@ -1721,7 +1859,7 @@ def main() -> int:
     all_launches = [paper_launches, massive_launches, *lm_launches.values(),
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
-                    hetero[1], churn[1]]
+                    hetero[1], churn[1], async_path[1]]
     for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
         entry["launches"] = sum(run[entry["name"]] for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
@@ -1738,6 +1876,9 @@ def main() -> int:
                                  "staleness": hetero[2]},
                       "churn": {"wall_s": churn[0], "launches": churn[1],
                                 "faults": churn[2], "resume": churn[3]},
+                      "async": {"wall_s": async_path[0],
+                                "launches": async_path[1],
+                                "telemetry": async_path[2]},
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

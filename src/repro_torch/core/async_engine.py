@@ -1,0 +1,552 @@
+"""Rounds-free async aggregation: the fog node's event loop
+(``repro.core.async_engine`` ported, flat form: one fog node).
+
+Devices finish whenever they finish.  Each draws a completion latency, in
+SIMULATED seconds, for every local round it is dispatched
+(``AsyncConfig.dist``: exponential, lognormal or deterministic, around a
+per-device mean from ``device_latency_means``).  The fog node aggregates
+at ``t_event = min(K-th smallest completion time, t_last + timer)``:
+``quorum=1`` is FedAsync, ``quorum=K`` FedBuff, a ``timer`` alone a
+wall-clock cadence.  Arrivals fold their banked deltas into the fog model
+with ``αᵢ ∝ rawᵢ·decay(stalenessᵢ)`` (``aggregation.staleness_weights``),
+staleness counted in model versions, and are dispatched again.
+
+The reference compiles the whole loop into one ``lax.scan``.  The port
+runs it as a Python loop over events: the event queue (the ``[D]``
+completion times, dispatch flags, liveness and staleness, and the clock)
+is host numpy, and each event's device work is one candidate round over
+the whole fleet (the acquisition-score kernel scores it), masked to the
+dispatched rows, then Eq. 1 over the arrivals through the
+fused-aggregation kernel.  An event that accepts nothing launches no
+reduce and keeps the fog model.
+
+Randomness.  JAX's latency draws cannot be replayed in torch, so one
+function, ``latency_draws``, makes an event's standard draws with numpy
+from the seed ``(AsyncConfig.seed + LATENCY_STREAM, absolute event
+index)``, and ``scale_latency`` scales them by the means in float32 as the
+reference's ``_draw_latency`` does.  Fault draws come from
+``faults.round_draws`` at the absolute event index (the reference splits
+its per-event fault key as it splits a round's).  Tests replace both
+functions to feed the reference's draws.  The candidate round draws from
+``state.rng`` at event 0 and from ``device_generator(start_event + t)``
+after, as ``run_rounds_fused`` does; the int8 codec from
+``comms_generator(start_event + t)``.
+
+With ``mean_latency=0`` and ``quorum >= D`` every event is a full barrier
+and the loop equals ``EdgeEngine.run_rounds_fused`` within 1e-5 (delta
+form against the direct reduce).  The fog topology (``topology=``) and
+live traffic (``stream=``, ``fleet=``) raise ``NotImplementedError``
+naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import aggregation as agg_mod
+from repro_torch.core import comms as comms_mod
+from repro_torch.core import counters, vpool
+from repro_torch.core import faults as faults_mod
+from repro_torch.core import hetero as hetero_mod
+from repro_torch.core.engine import (_UNPORTED_FUSED, CODEC_SPAN,
+                                     EngineState, _rows, _where_rows,
+                                     reject_unported)
+from repro_torch.core.hetero import DECAYS
+from repro_torch.core.model_adapter import excluded_paths
+from repro_torch.tree import (tree_items, tree_leaves, tree_map,
+                              tree_map_with_path)
+
+DISTS = ("exp", "lognormal", "det")
+
+_ASYNC_AGGREGATIONS = ("average", "weighted", "fedavg_n")
+
+# offset of the latency stream's seed from ``AsyncConfig.seed``
+LATENCY_STREAM = 0x6C6174
+
+# options of the reference's run_events_fused that later slices port
+_UNPORTED_EVENTS = {**_UNPORTED_FUSED,
+                    "stream": "Queue 1 item 14 (streaming and scenarios)"}
+
+
+@dataclass(frozen=True)
+class AsyncConfig:
+    """Policy of the rounds-free event loop (the reference's fields,
+    defaults and messages).
+
+    Trigger, at least one of: ``quorum`` (int >= 1; aggregate once this
+    many devices have completed, clipped to D; 1 = FedAsync) and ``timer``
+    (> 0 simulated seconds after the previous event, possibly aggregating
+    nothing).
+
+    Latency, in simulated seconds: ``dist`` ``"exp" | "lognormal" |
+    "det"`` (default ``"exp"``) around each device's mean; ``mean_latency``
+    (>= 0, default 1.0) the fleet's geometric-mean latency;
+    ``latency_skew`` (>= 1, default 1.0) slowest / fastest mean, log-spaced
+    with device 0 fastest; ``device_means`` explicit per-device means (D
+    floats, overriding both); ``sigma`` (> 0, default 0.5) the
+    mean-preserving lognormal shape, ``mean·exp(σZ − σ²/2)``.
+
+    Aggregation: ``decay`` / ``decay_rate`` the staleness discount in
+    model versions (``exp`` → ``rate**s`` with rate in (0, 1], ``poly`` →
+    ``(1+s)**-rate``, ``none`` → 1; default ``"poly"`` / 0.5, FedAsync's);
+    ``mix_rate`` η in (0, 1] (default 1.0; 1.0 for the synchronous limit):
+    ``W ← W + η·Σ αᵢ·Δᵢ``; ``seed`` (default 0) the latency stream's,
+    independent of the experiment seed."""
+
+    quorum: Optional[int] = None
+    timer: Optional[float] = None
+    dist: str = "exp"
+    mean_latency: float = 1.0
+    latency_skew: float = 1.0
+    device_means: Optional[Tuple[float, ...]] = None
+    sigma: float = 0.5
+    decay: str = "poly"
+    decay_rate: float = 0.5
+    mix_rate: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.quorum is None and self.timer is None:
+            raise ValueError(
+                "AsyncConfig needs a trigger: set quorum (K completions), "
+                "timer (simulated seconds), or both")
+        if self.quorum is not None and self.quorum < 1:
+            raise ValueError(f"quorum must be >= 1, got {self.quorum}")
+        if self.timer is not None and self.timer <= 0.0:
+            raise ValueError(f"timer must be > 0 simulated seconds, "
+                             f"got {self.timer}")
+        if self.dist not in DISTS:
+            raise ValueError(f"unknown latency dist {self.dist!r}: "
+                             f"use {' | '.join(DISTS)}")
+        if self.mean_latency < 0.0:
+            raise ValueError(
+                f"mean_latency must be >= 0, got {self.mean_latency}")
+        if self.latency_skew < 1.0:
+            raise ValueError(
+                f"latency_skew is slowest/fastest >= 1, "
+                f"got {self.latency_skew}")
+        if self.sigma <= 0.0:
+            raise ValueError(f"sigma must be > 0, got {self.sigma}")
+        if self.decay not in DECAYS:
+            raise ValueError(f"unknown decay {self.decay!r}: "
+                             f"use {' | '.join(DECAYS)}")
+        if self.decay_rate <= 0.0:
+            raise ValueError(f"decay_rate must be > 0, got {self.decay_rate}")
+        if self.decay == "exp" and self.decay_rate > 1.0:
+            raise ValueError(
+                f"exp decay_rate is the per-version factor gamma in (0, 1], "
+                f"got {self.decay_rate}")
+        if not 0.0 < self.mix_rate <= 1.0:
+            raise ValueError(f"mix_rate must be in (0, 1], "
+                             f"got {self.mix_rate}")
+
+
+def device_latency_means(cfg: AsyncConfig, num_devices: int) -> np.ndarray:
+    """Per-device mean completion latency ``[D] float32``, simulated
+    seconds: ``cfg.device_means`` (shape-checked), else log-spaced over
+    ``[mean/√skew, mean·√skew]`` with device 0 fastest."""
+    if cfg.device_means is not None:
+        means = np.asarray(cfg.device_means, np.float32)
+        if means.shape != (num_devices,):
+            raise ValueError(f"device_means shape {means.shape} != "
+                             f"({num_devices},)")
+        if (means < 0).any():
+            raise ValueError("device_means must be >= 0 simulated seconds")
+        return means
+    if cfg.latency_skew == 1.0 or num_devices == 1:
+        return np.full((num_devices,), cfg.mean_latency, np.float32)
+    half = np.sqrt(cfg.latency_skew)
+    return (cfg.mean_latency
+            * np.geomspace(1.0 / half, half, num_devices)).astype(np.float32)
+
+
+def latency_draws(cfg: AsyncConfig, event_idx: int,
+                  num_devices: int) -> Optional[np.ndarray]:
+    """Event ``event_idx``'s (absolute index) standard latency draws ``[D]
+    float32``, with numpy from the seed ``(cfg.seed + LATENCY_STREAM,
+    event_idx)``: exponential for ``"exp"``, normal for ``"lognormal"``,
+    None for ``"det"``."""
+    if cfg.dist == "det":
+        return None
+    rng = np.random.default_rng([cfg.seed + LATENCY_STREAM, event_idx])
+    if cfg.dist == "exp":
+        return rng.standard_exponential(num_devices, dtype=np.float32)
+    return rng.standard_normal(num_devices, dtype=np.float32)
+
+
+def scale_latency(cfg: AsyncConfig, draws, means) -> np.ndarray:
+    """Completion latencies ``[D] float32`` from the standard ``draws``
+    and the per-device ``means``, in float32 as the reference's
+    ``_draw_latency``: ``means`` (det), ``means·z`` (exp), ``means·exp(σz
+    − σ²/2)`` (lognormal).  A zero mean is zero latency under every
+    dist."""
+    means = np.asarray(means, np.float32)
+    if cfg.dist == "det":
+        return means.copy()
+    z = np.asarray(draws, np.float32)
+    if cfg.dist == "exp":
+        return means * z
+    sigma = np.float32(cfg.sigma)
+    return means * np.exp(sigma * z
+                          - np.float32(0.5 * cfg.sigma * cfg.sigma))
+
+
+def _event_uploads(codec, pending, residual, arrived, excl, generator, *,
+                   wire: bool):
+    """An event's uploads ``pending (+ residual)`` over the leaves outside
+    ``excl``, as the fog node receives them: ``(rows, scales)``, ``rows``
+    a ``{path: [D, ...]}`` dict.  Without a codec the rows are the uploads
+    themselves and ``scales`` None.  With one, each leaf is encoded in
+    turn and the error-feedback ``residual`` (or None) updates IN PLACE
+    from the clean payload on the ``arrived`` rows; the rows are then the
+    wire payload (``wire``: int8 codes with ``scales``, or values at the
+    wire dtype), or its float32 decoding."""
+    res = None if residual is None else dict(tree_items(residual))
+    rows, scales = {}, {}
+    for path, pend in tree_items(pending):
+        if path in excl:
+            continue
+        x = pend if res is None else pend + res[path]
+        if codec is None:
+            rows[path] = x
+            continue
+        # the profiler's span for the codec's own device work
+        with torch.profiler.record_function(CODEC_SPAN):
+            payload, scale = comms_mod.encode_rows(codec, x, generator)
+            dec = (comms_mod.decode_rows(payload, scale)
+                   if res is not None or not wire else None)
+            if res is not None:
+                res[path].copy_(torch.where(_rows(arrived, x) > 0, x - dec,
+                                            res[path]))
+        if wire:
+            rows[path] = payload
+            if scale is not None:
+                scales[path] = scale
+        else:
+            rows[path] = dec
+    return rows, (scales or None)
+
+
+def run_events_fused(engine, state: EngineState, events: int, *,
+                     async_cfg: Optional[AsyncConfig] = None,
+                     aggregation: str = "fedavg_n", comms=None,
+                     start_event: int = 0, faults=None, guards=None,
+                     topology=None, stream=None, hetero=None, fleet=None):
+    """``events`` fog aggregation events of the rounds-free loop.
+
+    ``engine`` is an ``EdgeEngine``; ``state`` an ``EngineState`` whose
+    param rows are identical (the dispatch protocol every caller follows).
+    ``aggregation`` ∈ average | weighted | fedavg_n (``optimal`` has no
+    Eq. 1 weights to decay).  Each event:
+
+    0. churn (with ``faults``, always the birth/death process): a dead
+       device parks its completion time at ``+inf`` and loses its
+       dispatch; a reborn one is dispatched with staleness 0;
+    1. dispatched devices take the fog model (excluded leaves keep each
+       device's own value) and a fresh optimizer state; the candidate
+       round runs over the whole fleet and commits on ``dispatch · (1 −
+       crash)``; committed rows bank ``params − base`` in ``pending``
+       (excluded leaves 0); dispatched rows complete at ``t_now +
+       latency`` (a crash multiplies it by ``faults.restart_mult``);
+    2. ``t_event = min(K-th smallest completion, t_now + timer)``;
+       arrivals are the finite completions at or before it;
+    3. the uploads ``pending (+ residual)`` go through the ``comms``
+       codec (error feedback on arrivals only, from the clean payload),
+       then wire corruption and the ``guards``; ``α =
+       staleness_weights(raw, staleness, accepted)`` and ``fog ← fog +
+       mix_rate · Σ αᵢ·sentᵢ`` through the fused-aggregation kernel.  An
+       event that accepts nothing zeroes its weights and keeps the fog
+       model;
+    4. arrivals clear ``pending``, reset their staleness and are
+       dispatched next; live devices still in flight age one version when
+       something was accepted; an infinite ``t_event`` freezes the clock.
+
+    A call starts the clock at 0 with every device dispatched and
+    staleness 0 (chaining restarts it: work in flight at the end of a call
+    is re-run, not delivered); pass ``start_event`` = events completed so
+    far so the draws do not repeat.  ``hetero`` contributes its compute
+    profile (step limits) only; ``straggler_rate > 0`` is refused, the
+    latency model being the straggler model.
+
+    Returns ``(state, recs, fog_params)``: ``recs`` holds ``[events, ...]``
+    rows ``weights``, ``upload_mask`` (the arrivals), ``n_labeled``,
+    ``staleness`` (before aggregation), ``sim_time``, ``arrivals``,
+    ``timer_fired``, and ``device_accs`` / ``agg_acc`` with a test set;
+    ``live`` under churn, ``crashed`` / ``dropped`` / ``corrupted`` with
+    faults, ``rejected`` / ``clipped`` / ``upload_norms`` / ``accepted``
+    with guards.  ``state.pending`` holds the deltas still in flight and
+    ``state.staleness`` their ages."""
+    reject_unported("run_events_fused", _UNPORTED_EVENTS,
+                    topology=topology, stream=stream, fleet=fleet)
+    if async_cfg is None:
+        raise ValueError("run_events_fused needs an AsyncConfig "
+                         "(async_cfg=)")
+    if aggregation not in _ASYNC_AGGREGATIONS:
+        raise ValueError(
+            f"async aggregation must be one of "
+            f"{' | '.join(_ASYNC_AGGREGATIONS)}, got {aggregation!r} "
+            f"('optimal' has no Eq. 1 weights for staleness decay)")
+    has_val = engine.test_images is not None
+    if aggregation == "weighted" and not has_val:
+        raise ValueError(
+            "aggregation='weighted' scores devices on a validation set; "
+            "construct EdgeEngine with test_set")
+    if hetero is not None and hetero.straggler_rate > 0.0:
+        raise ValueError(
+            "hetero.straggler_rate has no event-time meaning: the async "
+            "latency model IS the straggler model (AsyncConfig.dist / "
+            "mean_latency / latency_skew / device_means).  Set "
+            "straggler_rate=0 — only the compute profile (slow_fraction / "
+            "step_limits) maps onto the event loop")
+    if state.rng is None:
+        raise ValueError("the state has no generator (a restored "
+                         "checkpoint): call resume_state first")
+    engine._check_capacity(state, rounds=events)
+    if guards is not None and guards.policy == "off":
+        guards = None
+    D, dev, trainer = engine.num_devices, engine.device, engine.trainer
+    step_limit = None
+    if hetero is not None:
+        limits = hetero_mod.device_step_limits(
+            hetero, D, engine.cfg.train_steps_per_acq)
+        if limits is not None:
+            step_limit = torch.as_tensor(limits, device=dev)
+    codec = comms if comms is not None and comms.lossy else None
+    guarded = faults is not None or guards is not None
+    rates = faults_mod.rates_vector(faults)
+    means = device_latency_means(async_cfg, D)
+    quorum = (None if async_cfg.quorum is None
+              else min(max(async_cfg.quorum, 1), D))
+    timer = None if async_cfg.timer is None else np.float32(async_cfg.timer)
+    inf = np.float32(np.inf)
+
+    # working buffers: the prologue dispatches every device at t = 0 with
+    # staleness 0; pending starts at zeros unless carried, the residual
+    # exists only with a lossy codec and error feedback, liveness only
+    # with faults (updated in place, so never the caller's)
+    zeros = lambda: tree_map(torch.zeros_like, state.params)
+    residual = None
+    if codec is not None and codec.error_feedback:
+        residual = (tree_map(torch.clone, state.residual)
+                    if tree_leaves(state.residual) else zeros())
+    pending = state.pending if tree_leaves(state.pending) else zeros()
+    live = None
+    if faults is not None:
+        live = (state.live.detach().cpu().numpy().astype(np.float32)
+                if tree_leaves(state.live) else np.ones((D,), np.float32))
+    staleness = np.zeros((D,), np.int32)
+    dispatch = np.ones((D,), np.float32)
+    next_done = np.zeros((D,), np.float32)
+    t_now = np.float32(0.0)
+
+    counters.count_dispatch()
+    params, opt_state, pool, gen = (state.params, state.opt_state,
+                                    state.pool, state.rng)
+    excl = frozenset(excluded_paths(trainer.adapter, params))
+    fog = tree_map(lambda a: a[0], params)
+    recs: dict = {}       # device rows, one list a key
+    host: dict = {}       # host rows, one list a key
+    to_dev = lambda v: torch.as_tensor(v, device=dev)
+    for t in range(events):
+        e_abs = start_event + t
+        if t > 0:
+            gen = engine.device_generator(e_abs)
+        row, hrow = {}, {}
+        # ---- 0. churn and fault draws (numpy, absolute event index)
+        labels = crash = None
+        if faults is not None:
+            draws = faults_mod.round_draws(
+                faults, e_abs, D, engine.labels.shape[1],
+                trainer.adapter.num_classes)
+            live_prev = live
+            live = faults_mod.update_liveness(
+                live, draws.u_death, draws.u_birth,
+                rates[faults_mod.RATE_DEATH],
+                rates[faults_mod.RATE_BIRTH]).numpy()
+            born = (live > 0) & (live_prev <= 0)
+            dispatch = np.where(live > 0, np.where(born, 1.0, dispatch),
+                                0.0).astype(np.float32)
+            next_done = np.where(live > 0, next_done, inf)
+            staleness = np.where(born, 0, staleness).astype(np.int32)
+            crash, drop, corrupt, noise = (m.numpy() for m in
+                                           faults_mod.draw_fault_masks(
+                                               draws.u_faults, rates))
+            crash = crash * live
+            labels = torch.where(to_dev(noise)[:, None] > 0,
+                                 to_dev(draws.noisy_labels), engine.labels)
+        commit = dispatch if crash is None else dispatch * (1.0 - crash)
+        lat = scale_latency(async_cfg, latency_draws(async_cfg, e_abs, D),
+                            means)
+        if crash is not None:
+            lat = lat * np.where(crash > 0, rates[faults_mod.RATE_RESTART],
+                                 np.float32(1.0))
+        next_done = np.where(dispatch > 0, t_now + lat, next_done)
+
+        # ---- 2. the event: quorum of K or timer, whichever comes first
+        t_quorum = inf if quorum is None else np.sort(next_done)[quorum - 1]
+        t_timer = inf if timer is None else t_now + timer
+        t_event = min(t_quorum, t_timer)
+        # the finiteness test keeps parked (dead) slots out of an
+        # all-dead quorum event, where t_event is inf
+        arrived = ((next_done <= t_event)
+                   & np.isfinite(next_done)).astype(np.float32)
+        recv = arrived if faults is None else arrived * (1.0 - drop)
+        dispatch_d, commit_d, arrived_d, recv_d = to_dev(
+            np.stack([dispatch, commit, arrived, recv]))
+
+        # ---- 1. dispatch and the candidate round (masked commit)
+        incoming = tree_map_with_path(
+            lambda path, own, f: own if path in excl else f.unsqueeze(0),
+            params, fog)
+        params = _where_rows(dispatch_d, incoming, params)
+        opt_state = _where_rows(dispatch_d, trainer.opt.init(params),
+                                opt_state)
+        base = params
+        p2, o2, pool2, _ = engine._round(params, opt_state, pool, gen,
+                                         record_curves=False, labels=labels,
+                                         step_limit=step_limit)
+        # a crashed device loses the round: nothing commits
+        params = _where_rows(commit_d, p2, params)
+        opt_state = _where_rows(commit_d, o2, opt_state)
+        pool = vpool.VPool(*_where_rows(commit_d, tuple(pool2), tuple(pool)))
+        del p2, o2, pool2, incoming
+
+        with torch.no_grad():
+            banked = tree_map_with_path(
+                lambda path, p, b: (torch.zeros_like(p) if path in excl
+                                    else p - b), params, base)
+            pending = _where_rows(commit_d, banked, pending)
+            del banked, base
+
+            # ---- 3. staleness-decayed Eq. 1 over the arrivals
+            counts = vpool.n_labeled(pool).float()
+            accs = (agg_mod.stacked_accuracy(
+                trainer.eval_logits, params, engine.test_images,
+                engine.test_labels) if has_val else torch.zeros_like(counts))
+            raw = {"average": torch.ones_like(counts), "weighted": accs,
+                   "fedavg_n": counts}[aggregation]
+            # without faults or guards the reduce takes the codec's wire
+            # payload leaf by leaf; the guards judge whole decoded uploads
+            sent, scales = _event_uploads(
+                codec, pending, residual, arrived_d, excl,
+                engine.comms_generator(e_abs), wire=not guarded)
+            if faults is not None:
+                # wire corruption of received uploads, after the residual
+                sent = faults_mod.corrupt_stacked(
+                    faults.corrupt_mode, sent, to_dev(corrupt * recv),
+                    rates[faults_mod.RATE_CORRUPT_SCALE])
+            accept = recv_d
+            if guards is not None:
+                norms = faults_mod.stacked_norms(sent)
+                reject, clip, scale = faults_mod.guard_verdict(
+                    norms, faults_mod.stacked_finite(sent), recv_d,
+                    policy=guards.policy, factor=guards.norm_factor)
+                accept = recv_d * (1.0 - reject)
+                if guards.policy == "clip":
+                    sent = tree_map(lambda a: a * _rows(scale, a), sent)
+                sent = _where_rows(accept, sent,
+                                   tree_map(torch.zeros_like, sent))
+                row.update(rejected=reject, clipped=clip,
+                           upload_norms=norms, accepted=accept)
+            w = agg_mod.staleness_weights(
+                raw, to_dev(staleness), accept, kind=async_cfg.decay,
+                rate=async_cfg.decay_rate)
+            accept_any = bool(accept.sum() > 0)
+            if accept_any:
+                delta = (agg_mod.aggregate_stacked(
+                    sent, w, scales=scales, out_dtype=torch.float32)
+                    if sent else {})
+                fog = tree_map_with_path(
+                    lambda path, f: (f if path in excl
+                                     else f + async_cfg.mix_rate
+                                     * delta[path]), fog)
+                del delta
+            else:
+                # nothing accepted: aggregate nothing (the uniform
+                # fallback would fold in-flight deltas in early, and again
+                # on their arrival)
+                w = torch.zeros_like(w)
+            del sent
+
+            # ---- 4. bookkeeping: arrivals clear their banked delta and
+            # are dispatched next; live devices in flight age one model
+            # version when something was accepted
+            pending = tree_map(
+                lambda p: torch.where(_rows(arrived_d, p) > 0, 0.0, p),
+                pending)
+            row.update(weights=w, upload_mask=arrived_d, n_labeled=counts)
+            hrow.update(staleness=staleness, sim_time=t_event,
+                        arrivals=arrived.sum(dtype=np.float32),
+                        timer_fired=bool(np.isfinite(t_timer)
+                                         and t_timer <= t_quorum))
+            aging = np.int32(accept_any)
+            if live is not None:
+                aging = aging * (live > 0).astype(np.int32)
+                hrow["live"] = live
+            if faults is not None:
+                hrow.update(crashed=crash, dropped=drop * arrived,
+                            corrupted=corrupt * recv)
+            staleness = np.where(arrived > 0, 0,
+                                 staleness + aging).astype(np.int32)
+            dispatch = arrived
+            # an all-dead fleet without a timer gives t_event = inf:
+            # freeze the clock (reborn devices restart it)
+            if np.isfinite(t_event):
+                t_now = t_event
+            if has_val:
+                row["device_accs"] = accs
+                row["agg_acc"] = agg_mod.stacked_accuracy(
+                    trainer.eval_logits,
+                    tree_map(lambda a: a.unsqueeze(0), fog),
+                    engine.test_images, engine.test_labels)[0]
+        for k, v in row.items():
+            recs.setdefault(k, []).append(v)
+        for k, v in hrow.items():
+            host.setdefault(k, []).append(v)
+    out = {k: torch.stack(v) for k, v in recs.items()}
+    out.update({k: to_dev(np.stack(v)) for k, v in host.items()})
+    final = EngineState(
+        params, opt_state, pool, gen, () if residual is None else residual,
+        pending, to_dev(staleness), () if live is None else to_dev(live))
+    return final, out, fog
+
+
+def async_telemetry(recs) -> dict:
+    """Accuracy against simulated seconds from the event recs: the clock
+    per event, arrival statistics, timer events and the staleness
+    summary (``hetero.summarize_staleness``)."""
+    host = faults_mod._host
+    sim = host(recs["sim_time"]).astype(np.float64)
+    arrivals = host(recs["arrivals"]).astype(np.float64)
+    out = {
+        "events": int(sim.shape[0]),
+        "sim_seconds_total": float(sim[-1]) if sim.size else 0.0,
+        "sim_time_per_event": [float(t) for t in sim],
+        "mean_arrivals_per_event": float(arrivals.mean()),
+        "timer_fired_events": int(host(recs["timer_fired"]).sum()),
+        "staleness": hetero_mod.summarize_staleness(host(recs["staleness"])),
+    }
+    if "agg_acc" in recs:
+        accs = host(recs["agg_acc"]).astype(np.float64)
+        out["final_acc"] = float(accs[-1])
+        out["accuracy_vs_sim_time"] = [
+            {"event": t, "sim_seconds": float(sim[t]),
+             "accuracy": float(accs[t])}
+            for t in range(sim.shape[0])]
+    return out
+
+
+def report_telemetry(round_reports) -> dict:
+    """``async_telemetry`` over the per-event reports
+    ``run_federated_rounds(engine="async")`` returns (an async repeat's
+    ``"async"`` entry)."""
+    return async_telemetry({
+        "sim_time": [r["sim_time"] for r in round_reports],
+        "arrivals": [r["arrivals"] for r in round_reports],
+        "timer_fired": [r["timer_fired"] for r in round_reports],
+        "staleness": [r["staleness"] for r in round_reports],
+        "agg_acc": [r["aggregated_acc"] for r in round_reports],
+    })

@@ -31,7 +31,8 @@ staleness-decayed weights and per-device step budgets; ``faults=`` /
 ``guards=`` / ``live_mask=`` (``core.faults``) add churn, crashes, lost
 and corrupted uploads, label noise and the fog node's guards.  The
 topology and fleet options raise ``NotImplementedError`` naming their
-ROADMAP item.
+ROADMAP item.  ``run_async`` drops the round barrier
+(``core.async_engine``).
 
 Samples keep their dtype and rank end to end: float32 images ``[28, 28,
 1]`` for LeNet, int32 token sequences ``[S]`` for the LM adapters.
@@ -810,6 +811,21 @@ class EdgeEngine:
         return (EngineState(params, opt_state, pool, gen, none(residual),
                             none(pending), none(staleness), none(live)),
                 out, agg)
+
+    def run_async(self, state: EngineState, events: int, *, async_cfg=None,
+                  aggregation: str = "fedavg_n", comms=None,
+                  start_event: int = 0, faults=None, guards=None,
+                  topology=None, stream=None, hetero=None, fleet=None):
+        """Rounds-free FedAsync / FedBuff aggregation: ``events`` quorum-
+        or timer-triggered fog events over simulated device latencies
+        (``core.async_engine.run_events_fused``, of which this is a thin
+        delegate)."""
+        from repro_torch.core.async_engine import run_events_fused
+        return run_events_fused(self, state, events, async_cfg=async_cfg,
+                                aggregation=aggregation, comms=comms,
+                                start_event=start_event, faults=faults,
+                                guards=guards, topology=topology,
+                                stream=stream, hetero=hetero, fleet=fleet)
 
     # ------------------------------------------------------------ reporting
     def histories(self, recs) -> List[List[dict]]:

@@ -14,9 +14,12 @@ one device and one acquisition per call), ``classic`` (the ``EdgeDevice``
 loop over a numpy ``ActivePool``), and ``fused`` (``EdgeEngine
 .run_rounds_fused``, Eq. 1 through the fused-aggregation kernel, with
 optional compressed uploads, heterogeneous fleets, faults and guards).
-``run_experiment`` runs the ``paper``, ``massive``, ``hetero``, ``churn``
-and ``lm`` scenarios.  The ``lm`` fleet swaps LeNet for an LM adapter
-(``core.model_adapter``) on token shards (``data.lm``).
+``engine="async"`` drops the round barrier: the fog node aggregates on a
+FedBuff quorum or a timer over simulated device latencies
+(``core.async_engine``).  ``run_experiment`` runs the ``paper``,
+``massive``, ``hetero``, ``async``, ``churn`` and ``lm`` scenarios.  The
+``lm`` fleet swaps LeNet for an LM adapter (``core.model_adapter``) on
+token shards (``data.lm``).
 Everything runs on ``device`` (default ``"cuda"``; see
 ``repro_torch.device``).  Reports carry the reference's keys, the byte
 ledger's ``"comms"`` entry (``core.comms``) included.
@@ -30,12 +33,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import acquisition as acq
+from repro_torch.core import async_engine as async_mod
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hetero as hetero_mod
 from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
+from repro_torch.core.async_engine import AsyncConfig
 from repro_torch.core.comms import CommsConfig
 from repro_torch.core.engine import (EdgeEngine, reject_unported,
                                      score_logprobs)
@@ -340,32 +345,24 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
 
 # options of the reference's round functions that later slices port
 _UNPORTED_OPTIONS = {
-    "async_cfg": "Queue 1 item 12 (async engine)",
     "topology": "Queue 1 item 13 (fog topology and sharding)",
     "mesh": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
 }
-_UNPORTED_ENGINES = {
-    "async": "Queue 1 item 12 (async engine)",
-}
 
 
 def _check_engine(engine: str, allowed) -> None:
-    if engine in _UNPORTED_ENGINES:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: ROADMAP.md "
-            f"{_UNPORTED_ENGINES[engine]}")
     if engine not in allowed:
         raise ValueError(f"unknown engine {engine!r}: use "
                          + " | ".join(allowed))
 
 
-# the engines that run each in-round feature (the reference's table;
-# engine="async" is Queue 1 item 12 and raises before these checks)
+# the engines that run each in-round feature (the reference's table)
 _FEATURE_ENGINES = {
     "comms compression": ("fused",),
     "hetero": ("fused", "async"),
+    "async_cfg": ("async",),
     "faults": ("fused", "async"),
     "guards": ("fused", "async"),
 }
@@ -389,17 +386,38 @@ def _check_comms_engine(comms: Optional[CommsConfig], engine: str) -> None:
 
 def _check_hetero_engine(hetero: Optional[HeteroConfig], engine: str) -> None:
     """Straggler buffering, staleness and the compute profile live in the
-    fused rounds only."""
+    fused rounds (the async engine takes the compute profile only, see
+    ``_check_async_engine``)."""
     if hetero is not None:
         _require_engine(
             "hetero", engine,
-            "use run_federated_rounds(..., engine='fused', hetero=...)")
+            "use run_federated_rounds(..., engine='fused'|'async', "
+            "hetero=...)")
+
+
+def _check_async_engine(async_cfg: Optional[AsyncConfig], engine: str,
+                        hetero: Optional[HeteroConfig] = None) -> None:
+    """An ``AsyncConfig`` runs on the async engine only; there a
+    ``HeteroConfig`` contributes its compute profile, and its
+    round-synchronous ``straggler_rate`` is refused (the latency model is
+    the straggler model)."""
+    if async_cfg is not None:
+        _require_engine(
+            "async_cfg", engine,
+            "use run_federated_rounds(..., engine='async', async_cfg=...)")
+    if engine == "async" and hetero is not None \
+            and hetero.straggler_rate > 0.0:
+        raise ValueError(
+            "engine='async' does not compose with hetero.straggler_rate: "
+            "the async latency model replaces the round-synchronous "
+            "straggler model (use AsyncConfig's dist/latency_skew; the "
+            "hetero compute profile DOES compose — set straggler_rate=0)")
 
 
 def _check_faults_engine(faults: Optional[FaultConfig],
                          guards: Optional[GuardConfig], engine: str) -> None:
     """Churn, fault injection and the aggregation guards live in the fused
-    rounds only."""
+    rounds and the async event loop."""
     if faults is not None:
         _require_engine("faults", engine,
                         "fault injection runs inside the fused rounds")
@@ -523,14 +541,27 @@ def run_federated_rounds(cfg: FederatedALConfig,
     ``staleness``; ``faults=FaultConfig(...)`` / ``guards=GuardConfig(...)``
     add churn, fault injection and the fog node's guards, and the rows
     ``live`` / ``crashed`` / ``dropped`` / ``corrupted`` / ``rejected`` /
-    ``clipped`` of the features on (``EdgeEngine.run_rounds_fused``)."""
-    _check_engine(engine, ("vmap", "legacy", "classic", "fused"))
-    _check_comms_engine(comms, engine)
+    ``clipped`` of the features on (``EdgeEngine.run_rounds_fused``).
+
+    ``engine="async"`` drops the round barrier: ``rounds`` counts fog
+    aggregation events of ``EdgeEngine.run_async`` (``async_cfg``, default
+    ``default_async(D)``), with the same ``comms`` / ``faults`` /
+    ``guards`` and the compute profile of ``hetero``.  Each report adds
+    ``sim_time`` (simulated seconds), ``arrivals``, ``timer_fired`` and
+    the per-device ``staleness``.  Arrivals come from the latency model,
+    so ``upload_fraction < 1`` is refused."""
+    _check_engine(engine, ("vmap", "legacy", "classic", "fused", "async"))
+    _check_comms_engine(comms, "fused" if engine == "async" else engine)
     reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
-                    async_cfg=async_cfg, topology=topology, stream=stream,
-                    fleet=fleet)
+                    topology=topology, stream=stream, fleet=fleet)
+    _check_async_engine(async_cfg, engine, hetero)
     _check_hetero_engine(hetero, engine)
     _check_faults_engine(faults, guards, engine)
+    if engine == "async" and upload_fraction < 1.0:
+        raise ValueError(
+            "engine='async' decides arrivals from the latency model; "
+            "upload_fraction has no meaning there (tune AsyncConfig's "
+            "quorum/timer/latency instead)")
     device = _round_device(trainer, device)
     trainer = trainer or Trainer(cfg, device=device)
     fog = FogNode(trainer, cfg, seed_data, device=device)
@@ -548,25 +579,38 @@ def run_federated_rounds(cfg: FederatedALConfig,
         comms_mod.attach_round_comms(reports, summary)
         return params, reports
 
-    if engine == "fused":
+    if engine in ("fused", "async"):
         eng = EdgeEngine(trainer, cfg, device_data, seed_data, test_set,
                          total_acquisitions=cfg.acquisitions * rounds,
                          device=device)
-        mask = None
-        if upload_fraction < 1.0:
-            mask = upload_mask_schedule(len(device_data), upload_fraction,
-                                        cfg.seed, rounds)
-        _, recs, params = eng.run_rounds_fused(
-            eng.init_state(params), rounds, upload_mask=mask,
-            aggregation=cfg.aggregation, comms=comms, hetero=hetero,
-            faults=faults, guards=guards)
+        if engine == "async":
+            _, recs, params = eng.run_async(
+                eng.init_state(params), rounds,
+                async_cfg=(async_cfg if async_cfg is not None
+                           else default_async(len(device_data))),
+                aggregation=cfg.aggregation, comms=comms, faults=faults,
+                guards=guards, hetero=hetero)
+        else:
+            mask = None
+            if upload_fraction < 1.0:
+                mask = upload_mask_schedule(len(device_data),
+                                            upload_fraction, cfg.seed,
+                                            rounds)
+            _, recs, params = eng.run_rounds_fused(
+                eng.init_state(params), rounds, upload_mask=mask,
+                aggregation=cfg.aggregation, comms=comms, hetero=hetero,
+                faults=faults, guards=guards)
         rows = {k: v.cpu().numpy() for k, v in recs.items()}
         extra = [k for k in ("staleness",) + faults_mod.REPORT_KEYS
                  if k in rows]
         for t in range(rounds):
             uploaded = np.nonzero(rows["upload_mask"][t])[0]
-            reports.append({
-                "round": t,
+            report = {"round": t}
+            if engine == "async":
+                report.update(sim_time=float(rows["sim_time"][t]),
+                              arrivals=int(rows["upload_mask"][t].sum()),
+                              timer_fired=bool(rows["timer_fired"][t]))
+            report.update({
                 "aggregated_acc": float(rows["agg_acc"][t]),
                 "aggregation": {
                     "strategy": cfg.aggregation,
@@ -576,6 +620,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
                 },
                 **{k: rows[k][t].tolist() for k in extra},
             })
+            reports.append(report)
         return attach_comms(rows["upload_mask"], rows["n_labeled"])
 
     def aggregate_round(t, refined, counts):
@@ -663,6 +708,11 @@ DEFAULT_FAULTS = FaultConfig(
     label_noise_rate=0.05)
 DEFAULT_GUARDS = GuardConfig(policy="drop", norm_factor=8.0)
 
+# Rounds-free async scenario (scenario="async"): the fog node aggregates
+# on a FedBuff quorum or a safety timer over simulated latencies whose
+# per-device means span this slowest / fastest ratio.
+ASYNC_LATENCY_SKEW = 10.0
+
 
 def hetero_config(num_devices: int = 64, *, seed: int = 0,
                   **overrides) -> FederatedALConfig:
@@ -670,6 +720,26 @@ def hetero_config(num_devices: int = 64, *, seed: int = 0,
     of ``massive_config`` on ``dirichlet_split`` shards; pair with a
     ``HeteroConfig`` (``DEFAULT_HETERO`` in ``scenario="hetero"``)."""
     return massive_config(num_devices, seed=seed, **overrides)
+
+
+def async_config(num_devices: int = 64, *, seed: int = 0,
+                 **overrides) -> FederatedALConfig:
+    """Preset for the async event-loop regime: the small-budget fleet on
+    ``dirichlet_split`` shards; pair with an ``AsyncConfig``
+    (``default_async(D)`` in ``scenario="async"``)."""
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
+def default_async(num_devices: int) -> AsyncConfig:
+    """The FedBuff ``AsyncConfig`` of ``scenario="async"``, sized to the
+    fleet: quorum a quarter of the devices (at least 1), a 4-simulated-
+    second safety timer, exponential latencies of mean 1 with a
+    ``ASYNC_LATENCY_SKEW`` slow / fast spread, and FedAsync's polynomial
+    staleness decay (rate 0.5)."""
+    return AsyncConfig(quorum=max(1, num_devices // 4), timer=4.0,
+                       dist="exp", mean_latency=1.0,
+                       latency_skew=ASYNC_LATENCY_SKEW,
+                       decay="poly", decay_rate=0.5)
 
 
 def churn_config(num_devices: int = 64, *, seed: int = 0,
@@ -708,19 +778,20 @@ def lm_config(num_devices: int = 8, *, seed: int = 0,
 
 
 # scenario → (native engine, preset maker or None = explicit cfg, split,
-# default {hetero | faults | guards: config} the caller's options override)
+# default {hetero | faults | guards: config} the caller's options override;
+# the async engine's own default is default_async(D))
 SCENARIOS: Dict[str, tuple] = {
     "paper": ("vmap", None, "digits", {}),
     "massive": ("fused", massive_config, "digits", {}),
     "hetero": ("fused", hetero_config, "dirichlet",
                {"hetero": DEFAULT_HETERO}),
+    "async": ("async", async_config, "dirichlet", {}),
     "churn": ("fused", churn_config, "dirichlet",
               {"faults": DEFAULT_FAULTS, "guards": DEFAULT_GUARDS}),
     "lm": ("fused", lm_config, "lm", {}),
 }
 # the reference's other scenarios, and the ROADMAP item that ports each
 _UNPORTED_SCENARIOS = {
-    "async": "Queue 1 item 12 (async engine)",
     "fog": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
 }
@@ -758,17 +829,21 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     ``scenario="churn"`` runs ``churn_config(num_devices)`` on the same
     shards with ``DEFAULT_FAULTS`` and ``DEFAULT_GUARDS``
     (``guards=GuardConfig(policy="off")`` is the unguarded control); each
-    repeat adds a ``"faults"`` summary (``faults.report_summary``).  An
-    explicit ``hetero=`` / ``faults=`` / ``guards=`` wins over the
-    scenario's default."""
+    repeat adds a ``"faults"`` summary (``faults.report_summary``).
+    ``scenario="async"`` runs ``async_config(num_devices)`` on the same
+    shards on the async engine with ``default_async(num_devices)``;
+    ``rounds`` counts fog aggregation events, and each repeat adds an
+    ``"async"`` summary (``async_engine.report_telemetry``: simulated
+    seconds, arrivals, timer events, staleness).  An explicit ``hetero=``
+    / ``async_cfg=`` / ``faults=`` / ``guards=`` wins over the scenario's
+    default."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import (dirichlet_split,
                                                   federated_split)
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
     reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
-                    async_cfg=async_cfg, topology=topology, stream=stream,
-                    fleet=fleet)
+                    topology=topology, stream=stream, fleet=fleet)
     if scenario is not None:
         if scenario in _UNPORTED_SCENARIOS:
             raise NotImplementedError(
@@ -790,7 +865,7 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         split = "digits"
     if cfg is None:
         raise ValueError("pass cfg or a preset scenario (massive | hetero | "
-                         "churn | lm)")
+                         "async | churn | lm)")
     engine = "vmap" if engine is None else engine
     device = resolve_device(device)
 
@@ -822,23 +897,28 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
             else:
                 shards = federated_split(full, cfg.num_devices, seed=seed)
         cfg_rep = replace(cfg, seed=seed)
-        if engine == "fused" or rounds > 1:
+        if engine in ("fused", "async") or rounds > 1:
             _, round_reports = run_federated_rounds(
                 cfg_rep, shards, seed_set, test, rounds=rounds,
-                engine=engine, comms=comms, hetero=hetero, faults=faults,
-                guards=guards, device=device)
+                engine=engine, comms=comms, hetero=hetero,
+                async_cfg=async_cfg, faults=faults, guards=guards,
+                device=device)
             rep_report = {
                 "rounds": round_reports,
                 "comms": comms_mod.experiment_telemetry(round_reports)}
             if hetero is not None:
                 rep_report["staleness"] = hetero_mod.summarize_staleness(
                     [r["staleness"] for r in round_reports])
+            if engine == "async":
+                rep_report["async"] = async_mod.report_telemetry(
+                    round_reports)
             if faults is not None or guards is not None:
                 rep_report["faults"] = faults_mod.report_summary(
                     round_reports)
             reports.append(rep_report)
         else:
             _check_faults_engine(faults, guards, engine)
+            _check_async_engine(async_cfg, engine, hetero)
             _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
                                                 test, engine=engine,
                                                 comms=comms, hetero=hetero,

@@ -303,21 +303,22 @@ def test_straggler_rate_draws_the_arrival_mask():
     assert torch.equal(recs_h["upload_mask"], recs_f["upload_mask"])
 
 
-@pytest.mark.parametrize("scenario", ["hetero", "churn"])
+@pytest.mark.parametrize("scenario", ["hetero", "churn", "async"])
 def test_scenarios_carry_the_reference_report_keys(scenario):
     """``run_experiment(scenario=...)`` reports hold at least the keys of
     the reference's ``report_schema`` for the scenario, per round and per
-    repeat (a small fleet: 4 devices, one step a fit)."""
+    repeat (a small fleet: 4 devices, 8 for async's quorum of 2, one step
+    a fit)."""
     from repro.core.federated import report_schema
     from repro_torch.core import federated
     preset = getattr(federated, f"{scenario}_config")
-    cfg = preset(4, acquisitions=1, train_steps_per_acq=1,
-                 initial_train_steps=1, mc_samples=2)
+    cfg = preset(8 if scenario == "async" else 4, acquisitions=1,
+                 train_steps_per_acq=1, initial_train_steps=1, mc_samples=2)
     rep = federated.run_experiment(cfg, scenario=scenario, rounds=2,
                                    n_test=20, device="cpu")[0]
     want = report_schema(scenario)
     assert want["repeat"] <= set(rep), want["repeat"] - set(rep)
     for r in rep["rounds"]:
         assert want["round"] <= set(r), want["round"] - set(r)
-    key = "staleness" if scenario == "hetero" else "faults"
-    assert rep[key]
+    key = {"hetero": "staleness", "churn": "faults", "async": "async"}
+    assert rep[key[scenario]]

@@ -256,11 +256,11 @@ def test_unported_options_raise(call):
         if call == "comms":   # comms and hetero are ported; topology waits
             run_federated_rounds(cfg, shards, seed_set, test, engine="fused",
                                  topology=object(), device="cpu")
-        elif call == "engine":  # legacy and classic are ported
-            run_federated_round(cfg, shards, seed_set, test,
-                                engine="async", device="cpu")
-        elif call == "scenario":  # hetero and churn are ported
-            run_experiment(scenario="async", device="cpu")
+        elif call == "engine":  # the async engine is ported; traffic waits
+            run_federated_rounds(cfg, shards, seed_set, test, engine="async",
+                                 stream=object(), device="cpu")
+        elif call == "scenario":  # hetero, churn and async are ported
+            run_experiment(scenario="stream", device="cpu")
         else:  # the LM adapters are ported; the MoE decoder is not yet
             from repro_torch.core.model_adapter import DecoderLMAdapter
             from repro_torch.models.config import ModelConfig
