@@ -26,7 +26,9 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    and int8, tree B also in int8 (path B's int8 uploads); two calls of
    each case must give equal bits; each case's kernel time against its
    own byte bound, and kernel, plain and ``torch.mv`` times in the
-   engine's mode;
+   engine's mode; the segment form at the fog path's shape (D = 256 in
+   ``default_topology(256)``'s 16 groups): kernel, plain and ``torch.mm``
+   times beside its byte bound;
 5. the flash-attention kernel (K3) against its plain version: every case
    of the JAX package's tests/test_kernels.py, the kernel's edges (GQA 8,
    several query tiles, head dims 13, 80, 96 and 192) and the decoder
@@ -53,7 +55,12 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    exponential latencies with a 10x skew, churn, crashes, drops, NaN
    corruption and label noise, guards ``"drop"``): arrivals, simulated
    times, timer events, staleness and the fault and guard rows exactly
-   equal, the fog model, params and banked deltas by the same rule; the
+   equal, the fog model, params and banked deltas by the same rule; a fog
+   topology of 2 groups on 8 devices (3 fused rounds with a top-k fog
+   codec, 4 async events: ``fog_sync``, ``group_accept`` and the other
+   rows exactly equal, β within 1e-6, the rest by the same rule) and
+   ``uniform_topology(8, 1)`` against the flat run on the card (bit for
+   bit when two flat runs repeat their bits); the
    reduced SSM LM and a small decoder LM (fused rounds); the
    CPU port is held against the JAX package by the tests;
 8. the paper's main path: ``run_experiment(scenario="paper")`` at the
@@ -89,22 +96,36 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     (do the card's bits repeat?), and 2 rounds, ``save_engine_state``,
     ``load_engine_state``, ``resume_state(next_round=2)``, 1 round with
     ``start_round=2``, equal to the uninterrupted run bit for bit when the
-    bits repeat, else within twice the run-to-run gap;
+    bits repeat, else within twice the run-to-run gap; and the async
+    restore on 8 devices (faults, guards, int8): 2 events, save, load,
+    ``resume_state(next_round=2)``, 2 events, against 2 events chained on
+    the in-memory state, by the same rule;
 17. the async event loop: ``run_experiment(scenario="async",
     num_devices=256, rounds=8)`` (``default_async(256)``: a FedBuff quorum
     of 64, a 4 s timer, exponential latencies with a 10x skew, poly decay
     0.5, over 8 events): wall, simulated seconds, mean arrivals, timer
     events and staleness, K1 exactly 16 launches (2 an event), K2 one an
     accepting event, weights summing to 1 on those, the fog model finite;
+19. the fog topology: ``run_experiment(scenario="fog", num_devices=256,
+    rounds=4)`` (``default_topology(256)``: 16 groups of 16, rounds 0-2
+    fog-local, round 3 a sync): wall, ``fog_sync`` [0, 0, 0, 1], β summing
+    to 1 on accepting rounds, ``group_accept``, the tiers' bytes and
+    ``cross_tier_reduction``; K1 exactly 8 launches, K2's flat and
+    segment launches apart, a segment launch in each fog-local round;
+    then with ``CommsConfig(fog_compression="int8")``: a segment launch
+    every round (the delta form), the fog→cloud bytes exact, the fog
+    model finite;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 and phases 15-17 again under
+    four paths of phases 8-10 and phases 15-17 and 19 again under
     ``torch.profiler`` (wall, device-busy time, idle share, the kernels
     with the most device time), and phase 13's int8 run and phase 14
     with host activity too, for the device time of the codec (the
     engine's ``comms_codec`` spans);
-18. a ``{"kernels": [...]}`` line (launches in phases 8-10 and 12-17,
-    error, times, bound), and last the ``{"ok": true, "device": ...}``
-    line.
+18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17 and
+    19, K2's segment-form launches apart, error, times, bound), and last
+    the ``{"ok": true, "device": ...}`` line.
+
+Each phase's heading shows the seconds since the start.
 
 Kernel times are device times from ``torch.profiler`` (CUDA activity):
 the kernel's own time for ``ms``, every kernel of the call for
@@ -455,7 +476,55 @@ def check_aggregation_kernel(torch, k2, tree_leaves):
             "replaces": "src/repro/kernels/fused_aggregation.py:109",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain,
             "how": how, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib}
+            "library_ms": lib,
+            "segment": check_segment_at_fog_shape(torch, k2, tree_leaves,
+                                                  tree, gen)}
+
+
+def check_segment_at_fog_shape(torch, k2, tree_leaves, tree, gen):
+    """Phase 4, K2's segment form at the fog path's shape: D = 256 LeNet
+    rows in the G = 16 contiguous groups of ``default_topology(256)``,
+    preweighted (the intra-fog reduce of the fused rounds, per-group
+    weights summing to 1): error against plain, two calls bit-equal, and
+    kernel, plain and ``torch.mm`` (a ``[G, D]`` weight matrix, built
+    outside the timing, times the ``[D, N]`` rows) times beside the byte
+    bound.  Returns the kernels line's ``segment`` entry."""
+    from repro_torch.core import federated as fed
+    topo = fed.default_topology(256)
+    D, G = 256, topo.num_groups
+    ids = topo.segment_ids("cuda")
+    raw = torch.rand(D, generator=gen, device="cuda")
+    onehot = (ids[None, :] == torch.arange(G, device="cuda")[:, None]).float()
+    alpha = raw / (onehot * raw).sum(dim=1)[ids]
+    kw = dict(normalize=False, segment_ids=ids, num_segments=G)
+    got = k2.fused_aggregate(tree, alpha, **kw)
+    torch.cuda.synchronize()
+    err = max_err(torch, tree_leaves(got), tree_leaves(
+        k2.fused_aggregate_plain(tree, alpha, **kw)))
+    check_k2_repeatable(torch, k2, tree_leaves, "segment fog shape", got,
+                        tree, alpha, kw)
+    if not err <= 1e-5:
+        raise AssertionError(f"K2 segment at the fog shape: max_abs_err "
+                             f"{err} > 1e-5")
+    ms, how, host = timed(torch, lambda: k2.fused_aggregate(tree, alpha, **kw),
+                          "fused_aggregate_kernel")
+    plain, _, plain_host = timed(torch, lambda: k2.fused_aggregate_plain(
+        tree, alpha, **kw))
+    flat = torch.cat([leaf.reshape(D, -1) for leaf in tree_leaves(tree)],
+                     dim=1)                                   # [D, N]
+    weights = onehot * alpha[None, :]                         # [G, D]
+    lib, _, lib_host = timed(torch, lambda: torch.mm(weights, flat))
+    bound = k2_bound_ms(tree_leaves, tree, kw)
+    print(f"  K2 segment form at the fog path's shape (D=256, G={G} "
+          f"contiguous, N=61706 f32 preweighted), {how}: max_abs_err "
+          f"{err:.3e}, two calls bit-equal; kernel {ms:.5f} ms, plain "
+          f"{plain:.5f} ms, torch.mm {lib:.5f} ms, bound {bound:.5f} ms; "
+          f"per call with host overhead: wrapper {host:.5f} ms, plain "
+          f"{plain_host:.5f} ms, torch.mm {lib_host:.5f} ms")
+    return {"shape": f"D 256, G {G}, LeNet f32", "max_abs_err": err,
+            "ms": ms, "how": how, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": lib,
+            "library": "torch.mm of a [G, D] weight matrix"}
 
 
 def lm_path_configs(torch, fed):
@@ -1623,6 +1692,304 @@ def run_async_path(torch, fed, reset, read):
     return wall, launches, tel
 
 
+def small_fog_fleet(torch, fed, interop, lenet, events: int):
+    """Phase 7's RNG-free fog fleet: 8 LeNet devices (dropout 0, a window
+    of 64 over shards of at most 53) with the same start on both sides,
+    and a maker of its engine on a device."""
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    D = 8
+    cfg = fed.FederatedALConfig(num_devices=D, initial_train=10,
+                                acquisitions=2, k_per_acquisition=4,
+                                pool_window=64, mc_samples=4,
+                                train_steps_per_acq=5)
+    mcfg = lenet.LeNetConfig(p_conv=0.0, p_fc=0.0)
+    shards = federated_split(make_digit_dataset(320, seed=0), D, seed=0)
+    seed_set, test = make_digit_dataset(10, seed=11), make_digit_dataset(
+        200, seed=5)
+    p0 = interop.params_to_jax(lenet.LeNet.init(
+        torch.Generator().manual_seed(0), mcfg))
+
+    def engine(dev):
+        eng = EdgeEngine(fed.Trainer(cfg, model_cfg=mcfg, device=dev), cfg,
+                         shards, seed_set, test,
+                         total_acquisitions=events * cfg.acquisitions,
+                         device=dev)
+        return eng, interop.params_from_jax(p0, dev)
+
+    return cfg, engine
+
+
+def split_rule(name, pairs, reach):
+    """Card-vs-CPU leaves ``(what, card, cpu)`` within 1e-4, but for at
+    most ``comms.split_budget`` entries of a leaf, each within ``reach``
+    (phase 7's rule); returns (max_abs_err, entries beyond 1e-4)."""
+    import numpy as np
+    from repro_torch.core import comms
+    err, far = 0.0, 0
+    for what, a, b in pairs:
+        gap = np.abs(a - b)
+        err, n_far = max(err, float(gap.max())), int((gap > 1e-4).sum())
+        far += n_far
+        if n_far > comms.split_budget(gap.size) or gap.max() > reach:
+            raise AssertionError(f"{name}: card vs CPU {what} differ by up "
+                                 f"to {gap.max()}, {n_far} entries beyond "
+                                 "1e-4")
+    return err, far
+
+
+def check_fog_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves):
+    """Phase 7, the fog topology: on 8 RNG-free LeNet devices in G = 2
+    groups syncing every 2nd round, (a) 3 fused rounds with a top-k fog
+    codec and (b) 4 async events (a quorum of 2, a 0.5 s timer,
+    exponential latencies with a 10x skew), on the card and on the CPU
+    from the same start: ``fog_sync``, ``group_accept``, the arrival
+    masks, labeled counts (and the async clock, arrivals and staleness)
+    exactly equal, β within 1e-6, the fog model, params (and banked
+    deltas) within 1e-4 by the split rule.  Then (c) ``uniform_topology(8,
+    1)`` against the flat run on the card, both engines: bit for bit when
+    two flat runs repeat their bits, else within twice their gap."""
+    import numpy as np
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.comms import CommsConfig
+    from repro_torch.core.topology import uniform_topology
+    from repro_torch.tree import tree_map
+
+    cfg, engine = small_fog_fleet(torch, fed, interop, lenet, 4)
+    topo = uniform_topology(8, 2, local_steps=2)
+    acfg = AsyncConfig(quorum=2, timer=0.5, dist="exp", mean_latency=1.0,
+                       latency_skew=10.0)
+    reach = cfg.acquisitions * cfg.train_steps_per_acq * cfg.lr
+    cases = {
+        "fused, top-k fog codec": (
+            lambda eng, p0: eng.run_rounds_fused(
+                eng.init_state(p0), 3, topology=topo,
+                comms=CommsConfig(fog_compression="topk")),
+            ("upload_mask", "n_labeled", "fog_sync", "group_accept")),
+        "async events": (
+            lambda eng, p0: eng.run_async(eng.init_state(p0), 4,
+                                          async_cfg=acfg, topology=topo),
+            ("upload_mask", "n_labeled", "fog_sync", "group_accept",
+             "arrivals", "sim_time", "timer_fired", "staleness")),
+    }
+    for name, (run, exact) in cases.items():
+        out = {}
+        for dev in ("cuda", "cpu"):
+            st, recs, fog = run(*engine(dev))
+            out[dev] = ({k: v.cpu().numpy() for k, v in recs.items()},
+                        [tree_leaves(interop.params_to_jax(t))
+                         for t in (fog, st.params, st.pending)])
+        (rg, lg), (rc, lc) = out["cuda"], out["cpu"]
+        for key in exact:
+            if not np.array_equal(rg[key], rc[key]):
+                raise AssertionError(f"fog {name}: card and CPU {key} rows "
+                                     f"differ: {rg[key]} vs {rc[key]}")
+        beta = float(np.abs(rg["beta"] - rc["beta"]).max())
+        if not beta <= 1e-6:
+            raise AssertionError(f"fog {name}: card vs CPU beta {beta}")
+        err, far = split_rule(f"fog {name}", [
+            (what, a, b) for what, ga, ca in zip(("fog", "params", "pending"),
+                                                 lg, lc)
+            for a, b in zip(ga, ca, strict=True)], reach)
+        print(f"  card vs CPU fog {name}: fog_sync {rg['fog_sync'].tolist()}"
+              f", group_accept {rg['group_accept'].tolist()}, rows equal, "
+              f"beta max_abs_err {beta:.3e}; fog, params and pending "
+              f"max_abs_err {err:.3e}, {far} entries beyond 1e-4")
+
+    one = uniform_topology(8, 1)
+    runs = {
+        "fused": lambda eng, p0, **kw: eng.run_rounds_fused(
+            eng.init_state(p0), 2, **kw),
+        "async": lambda eng, p0, **kw: eng.run_async(
+            eng.init_state(p0), 3, async_cfg=acfg, **kw)}
+    for name, run in runs.items():
+        eng, p0 = engine("cuda")
+        first, second = run(eng, p0), run(eng, p0)
+        st, recs, fog = run(eng, p0, topology=one)
+        if name == "async":
+            fog = tree_map(lambda a: a[0], fog)      # the [1, ...] stack
+        recs = {k: v for k, v in recs.items()
+                if k not in ("fog_sync", "beta", "group_accept")}
+        repeat_gap, where = run_gap(torch, first, second)
+        gap, at = run_gap(torch, first, (st, recs, fog))
+        print(f"  fog G = 1 vs flat, {name}, card: two flat runs "
+              f"{'bit-equal' if where is None else 'differ'} (gap "
+              f"{repeat_gap:.3e}); G = 1 vs flat gap {gap:.3e} (first at "
+              f"{at})")
+        if where is None and at is not None:
+            raise AssertionError(f"fog G = 1 {name}: differs from the flat "
+                                 f"run at {at} although the card repeats "
+                                 "its bits")
+        if where is not None and not gap <= 2 * repeat_gap:
+            raise AssertionError(f"fog G = 1 {name}: gap {gap} > twice the "
+                                 f"run-to-run gap {repeat_gap}")
+
+
+def check_async_resume(torch, fed, interop, lenet):
+    """Phase 16, the async restore: 8 devices (the phase 7 fleet with MC
+    dropout on), churn, crashes, drops, corruption, label noise, guards
+    ``"drop"`` and int8 uploads with error feedback; 2 events, save, load,
+    ``resume_state(next_round=2)``, 2 events with ``start_event=2``
+    against 2 events chained on the in-memory state: bit for bit when two
+    chained continuations repeat their bits, else within twice their
+    gap."""
+    import tempfile
+    from repro_torch.checkpoint import load_engine_state, save_engine_state
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.comms import CommsConfig
+    from repro_torch.core.faults import FaultConfig, GuardConfig
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    cfg = fed.massive_config(8)
+    shards = federated_split(make_digit_dataset(320, seed=0), 8, seed=0)
+    seed_set, test = make_digit_dataset(20, seed=11), make_digit_dataset(
+        200, seed=5)
+    trainer = fed.Trainer(cfg)
+    eng = EdgeEngine(trainer, cfg, shards, seed_set, test,
+                     total_acquisitions=4 * cfg.acquisitions)
+    p0 = trainer.init_params(torch.Generator(device="cuda").manual_seed(0))
+    kw = dict(async_cfg=AsyncConfig(quorum=3, timer=4.0, dist="exp",
+                                    mean_latency=1.0, latency_skew=4.0),
+              faults=FaultConfig(death_rate=0.2, birth_rate=0.5,
+                                 crash_rate=0.1, drop_rate=0.1,
+                                 corrupt_rate=0.2, label_noise_rate=0.1),
+              guards=GuardConfig(policy="drop"),
+              comms=CommsConfig(compression="int8"))
+    st, _, _ = eng.run_async(eng.init_state(p0), 2, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/async.msgpack"
+        save_engine_state(path, st, metadata={"next_event": 2})
+        loaded, meta = load_engine_state(path)
+    chained = eng.run_async(st, 2, start_event=2, **kw)
+    again = eng.run_async(st, 2, start_event=2, **kw)
+    loaded = eng.resume_state(loaded, next_round=meta["next_event"])
+    restored = eng.run_async(loaded, 2, start_event=meta["next_event"], **kw)
+    repeat_gap, where = run_gap(torch, chained, again)
+    gap, at = run_gap(torch, chained, restored)
+    print(f"  async resume (D = 8, 2 + 2 events): two chained continuations "
+          f"{'bit-equal' if where is None else 'differ'} (gap "
+          f"{repeat_gap:.3e}); restored vs chained gap {gap:.3e} (first at "
+          f"{at})")
+    if where is None and at is not None:
+        raise AssertionError(f"async resume differs from the chained "
+                             f"continuation at {at} although the card "
+                             "repeats its bits")
+    if where is not None and not gap <= 2 * repeat_gap:
+        raise AssertionError(f"async resume gap {gap} > twice the "
+                             f"run-to-run gap {repeat_gap}")
+    return {"repeat_gap": repeat_gap, "resume_gap": gap,
+            "first_diff": at}
+
+
+class SegmentsPerRound:
+    """While active, the fused-aggregation kernel's segment-launch count
+    at the end of every fused round (read where the round re-dispatches
+    the fog models, ``topology.take_group_rows``)."""
+
+    def __init__(self, k2):
+        from repro_torch.core import topology
+        self.k2, self.topo, self.take = k2, topology, topology.take_group_rows
+        self.marks = []
+
+    def __enter__(self):
+        def take(*args, **kw):
+            self.marks.append(self.k2.segment_launches)
+            return self.take(*args, **kw)
+        self.topo.take_group_rows = take
+        return self
+
+    def __exit__(self, *exc):
+        self.topo.take_group_rows = self.take
+
+    def per_round(self):
+        marks = [0] + self.marks
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+
+def run_fog_path(torch, fed, comms, lenet, k2, reset, read):
+    """Phase 19: ``run_experiment(scenario="fog", num_devices=256,
+    rounds=4)`` on ``default_topology(256)`` (G = 16, local_steps 4:
+    rounds 0-2 fog-local, round 3 a sync): wall, ``fog_sync`` [0, 0, 0,
+    1], β summing to 1 on every accepting round, ``group_accept``, the
+    tiers summary; K1 exactly 8 launches, K2's flat and segment launches
+    apart, at least one segment launch in each of rounds 0-2.  Then the
+    same fleet with ``CommsConfig(fog_compression="int8")``: the delta
+    form's segment launches (one every round), every round's fog→cloud
+    bytes exact, the fog model finite."""
+    runs = {}
+    template = lenet_template(torch, lenet)
+    for name, cc in (("fog", None),
+                     ("fog int8 fog codec",
+                      comms.CommsConfig(fog_compression="int8"))):
+        reset()
+        k2.segment_launches = 0
+        t0 = time.perf_counter()
+        with FogModels(fed) as fog, SegmentsPerRound(k2) as seg:
+            rep = fed.run_experiment(scenario="fog", num_devices=256,
+                                     rounds=4, comms=cc)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        fog.check_finite(torch, name)
+        del fog
+        rounds = rep["rounds"]
+        segs = seg.per_round()
+        launches["fused_aggregation_segment"] = k2.segment_launches
+        flat = launches["fused_aggregation"] - k2.segment_launches
+        syncs = [int(r["fog_sync"]) for r in rounds]
+        tiers = rep["tiers"]
+        print(f"  {name}: wall {wall:.3f} s, aggregated_acc per round "
+              f"{[r['aggregated_acc'] for r in rounds]}, launches "
+              f"{launches} (K2 flat {flat}, segment {k2.segment_launches}, "
+              f"segment per round {segs}); fog_sync {syncs}; beta sums "
+              f"{[round(sum(r['beta']), 6) for r in rounds]}; group_accept "
+              f"{[r['group_accept'] for r in rounds]}")
+        print(f"  {name} tiers: edge->fog {tiers['edge_fog_bytes_total']} "
+              f"bytes, fog->cloud {tiers['fog_cloud_bytes_total']} bytes, "
+              f"cross_tier_reduction {tiers['cross_tier_reduction']}, "
+              f"per round {tiers['bytes_per_round']}")
+        if syncs != [0, 0, 0, 1]:
+            raise AssertionError(f"{name}: fog_sync {syncs}")
+        if launches["acquisition_scores"] != 8:
+            raise AssertionError(f"{name}: {launches['acquisition_scores']} "
+                                 "K1 launches, 4 rounds of R = 2 make 8")
+        if len(segs) != 4 or min(segs[:3]) < 1:
+            raise AssertionError(f"{name}: K2 segment launches per round "
+                                 f"{segs}, each fog-local round needs one")
+        for r in rounds:
+            bsum = sum(r["beta"])
+            if sum(r["group_accept"]) > 0 and not abs(bsum - 1.0) < 1e-5:
+                raise AssertionError(f"{name} round {r['round']}: beta sums "
+                                     f"{bsum}")
+            acc = r["aggregated_acc"]
+            if not (acc == acc and 0.0 <= acc <= 1.0):
+                raise AssertionError(f"{name} round {r['round']}: acc {acc}")
+        G = tiers["num_groups"]
+        per_group = comms.upload_bytes(comms.CommsConfig(
+            compression=(cc.fog_compression if cc else "none")), template)
+        for r, t in zip(rounds, tiers["bytes_per_round"]):
+            want = (G * (per_group + comms.METADATA_BYTES_PER_UPLOAD)
+                    if r["fog_sync"] else 0)
+            if t["fog_cloud_uplink_bytes"] != want:
+                raise AssertionError(f"{name} round {r['round']}: fog->cloud "
+                                     f"{t['fog_cloud_uplink_bytes']} bytes, "
+                                     f"the ledger's formula gives {want}")
+        if cc is not None and segs != [1, 1, 1, 1]:
+            raise AssertionError(f"{name}: the delta form reduces every "
+                                 f"round per segment, got {segs}")
+        runs[name] = {"wall_s": wall, "launches": launches,
+                      "k2_flat": flat, "k2_segment_per_round": segs,
+                      "tiers": {k: tiers[k] for k in (
+                          "edge_fog_bytes_total", "fog_cloud_bytes_total",
+                          "cross_tier_reduction")}}
+        torch.cuda.empty_cache()
+    return runs
+
+
 def profile_codec_path(torch, fn, span):
     """Run ``fn`` once under the profiler with host and device activity:
     ``(wall s, device-busy s, device ms inside the ``span`` ranges, the
@@ -1674,13 +2041,18 @@ def main() -> int:
     kernels = {"acquisition_scores": k1, "fused_aggregation": k2,
                "flash_attention": k3, "ssd_intra_chunk": k4}
     t_start = time.perf_counter()
+
+    def phase(title):
+        print(f"{title} (t = {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
+
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}; matmul allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}")
 
-    print("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"  built {secs} in {time.perf_counter() - t0:.1f} s")
@@ -1691,22 +2063,22 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     configs = lm_path_configs(torch, fed)
-    print("phase 3: acquisition-score kernel (K1) vs plain")
+    phase("phase 3: acquisition-score kernel (K1) vs plain")
     k1_entry = check_acquisition_kernel(torch, k1)
     err, k1_lm = check_acquisition_lm_widths(torch, k1)
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err)
     k1_entry["shapes"] += [{"case": name, **t} for name, t in k1_lm.items()]
-    print("phase 4: fused-aggregation kernel (K2) vs plain")
+    phase("phase 4: fused-aggregation kernel (K2) vs plain")
     k2_entry = check_aggregation_kernel(torch, k2, tree_leaves)
     err, k2_lm = check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map,
                                             configs)
     k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], err)
-    print("phase 5: flash-attention kernel (K3) vs plain")
+    phase("phase 5: flash-attention kernel (K3) vs plain")
     k3_entry = check_flash_attention_kernel(torch, k3)
-    print("phase 6: SSD intra-chunk kernel (K4) vs plain")
+    phase("phase 6: SSD intra-chunk kernel (K4) vs plain")
     k4_entry = check_ssd_kernel(torch, k4)
     torch.cuda.empty_cache()
-    print("phase 7: small rounds, card vs CPU")
+    phase("phase 7: small rounds, card vs CPU")
     check_small_round_against_cpu(torch, fed, interop, lenet)
     check_host_engines_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_comms_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves,
@@ -1714,6 +2086,7 @@ def main() -> int:
     check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
                                           tree_leaves)
     check_async_events_against_cpu(torch, fed, interop, lenet, tree_leaves)
+    check_fog_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_small_lm_rounds_against_cpu(torch, fed, interop)
 
     def reset():
@@ -1724,7 +2097,7 @@ def main() -> int:
     def read():
         return {k: mod.launches for k, mod in kernels.items()}
 
-    print("phase 8: paper main path (run_experiment scenario='paper')")
+    phase("phase 8: paper main path (run_experiment scenario='paper')")
     reset()
     t0 = time.perf_counter()
     rep = fed.run_experiment(fed.FederatedALConfig(), scenario="paper")[0]
@@ -1744,7 +2117,7 @@ def main() -> int:
     if n_hist != [10] * 4:
         raise AssertionError(f"device histories {n_hist} != 4 x 10")
 
-    print("phase 9: massive main path (scenario='massive', D=256, 2 rounds)")
+    phase("phase 9: massive main path (scenario='massive', D=256, 2 rounds)")
     reset()
     t0 = time.perf_counter()
     rounds = fed.run_experiment(scenario="massive", num_devices=256,
@@ -1767,7 +2140,7 @@ def main() -> int:
             raise AssertionError(f"round {r['round']}: weights sum {wsum}, "
                                  f"acc {r['aggregated_acc']}")
 
-    print("phase 10: LM paths (scenario='lm', 8 devices, 2 rounds, "
+    phase("phase 10: LM paths (scenario='lm', 8 devices, 2 rounds, "
           "n_test 256)")
     lm_walls, lm_launches = {}, {}
     for name, own in (("A", "ssd_intra_chunk"), ("B", "flash_attention")):
@@ -1779,29 +2152,33 @@ def main() -> int:
                 raise AssertionError(f"path {name} launched no {k} kernel")
         torch.cuda.empty_cache()
 
-    print("phase 12: host-aggregation engines at the paper's defaults")
+    phase("phase 12: host-aggregation engines at the paper's defaults")
     host = run_host_engine_paths(torch, fed, comms, lenet, reset, read)
     torch.cuda.empty_cache()
-    print("phase 13: massive main path with compressed uploads (D=256, 2 "
+    phase("phase 13: massive main path with compressed uploads (D=256, 2 "
           "rounds)")
     codecs = run_massive_codecs(torch, fed, comms, lenet, reset, read)
     torch.cuda.empty_cache()
-    print("phase 14: path B with int8 uploads (lm-100m, 8 devices, 2 rounds)")
+    phase("phase 14: path B with int8 uploads (lm-100m, 8 devices, 2 rounds)")
     b_int8 = run_lm_int8(torch, fed, comms, configs["B"], reset, read)
     torch.cuda.empty_cache()
 
-    print("phase 15: hetero path (scenario='hetero', D=256, 3 rounds)")
+    phase("phase 15: hetero path (scenario='hetero', D=256, 3 rounds)")
     hetero = run_hetero_path(torch, fed, reset, read)
     torch.cuda.empty_cache()
-    print("phase 16: churn path (scenario='churn', D=256, 3 rounds) and a "
-          "2 + 1-round resume")
+    phase("phase 16: churn path (scenario='churn', D=256, 3 rounds), a "
+          "2 + 1-round resume and a 2 + 2-event async resume")
     churn = run_churn_path(torch, fed, reset, read, tree_leaves)
+    async_resume = check_async_resume(torch, fed, interop, lenet)
     torch.cuda.empty_cache()
-    print("phase 17: async path (scenario='async', D=256, 8 events)")
+    phase("phase 17: async path (scenario='async', D=256, 8 events)")
     async_path = run_async_path(torch, fed, reset, read)
     torch.cuda.empty_cache()
+    phase("phase 19: fog path (scenario='fog', D=256, G=16, 4 rounds), and "
+          "with an int8 fog codec")
+    fog_path = run_fog_path(torch, fed, comms, lenet, k2, reset, read)
 
-    print("phase 11: where the time goes (all paths again, profiled)")
+    phase("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
     t0 = time.perf_counter()
     for n, seed in ((4000, 0), (1000, 5), (20, 11)):
@@ -1831,7 +2208,9 @@ def main() -> int:
         ("churn", lambda: fed.run_experiment(
             scenario="churn", num_devices=256, rounds=3)),
         ("async", lambda: fed.run_experiment(
-            scenario="async", num_devices=256, rounds=8)))
+            scenario="async", num_devices=256, rounds=8)),
+        ("fog", lambda: fed.run_experiment(
+            scenario="fog", num_devices=256, rounds=4)))
     path_profiles = {}
     for name, fn in profiled:
         wall, busy, top = profile_path(torch, fn)
@@ -1859,9 +2238,13 @@ def main() -> int:
     all_launches = [paper_launches, massive_launches, *lm_launches.values(),
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
-                    hetero[1], churn[1], async_path[1]]
+                    hetero[1], churn[1], async_path[1],
+                    *(v["launches"] for v in fog_path.values())]
     for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
         entry["launches"] = sum(run[entry["name"]] for run in all_launches)
+    # of K2's launches on the paths, those in segment form (phase 19)
+    k2_entry["segment_launches"] = sum(
+        run.get("fused_aggregation_segment", 0) for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
                       "lm_s": lm_walls, "paper_launches": paper_launches,
                       "massive_launches": massive_launches,
@@ -1879,6 +2262,7 @@ def main() -> int:
                       "async": {"wall_s": async_path[0],
                                 "launches": async_path[1],
                                 "telemetry": async_path[2]},
+                      "async_resume": async_resume, "fog": fog_path,
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

@@ -18,9 +18,9 @@ uniform over all slots), with the reference's 1e-30 floor.  Σα = 1 is
 load-bearing: it makes Eq. 1 exact in delta form, which the comms codecs
 rely on.
 
-``segment_sum_stacked`` (the reference keeps it in ``core.topology``) lives
-here until the topology slice is ported, because the kernel's segment mode
-is held against it.
+Per-segment sums of a ``[D]`` vector (``segment_sum``) reduce through a
+one-hot mask rather than ``index_add``, whose atomics on the card would
+make the weights' bits differ from run to run.
 """
 from __future__ import annotations
 
@@ -55,12 +55,23 @@ def masked_normalize(weights, mask=None, *, segment_ids=None,
     if num_segments is None:
         raise ValueError("segment_ids requires a static num_segments")
     ids = torch.as_tensor(segment_ids, device=w.device).long()
-    seg = lambda v: torch.zeros(num_segments, dtype=torch.float32,
-                                device=w.device).index_add(0, ids, v)[ids]
+    seg = lambda v: segment_sum(v, ids, num_segments)[ids]
     wsum, msum, size = seg(w), seg(m), seg(torch.ones_like(w))
     uniform = torch.where(msum > 0, m / torch.clamp(msum, min=1.0),
                           1.0 / torch.clamp(size, min=1.0))
     return torch.where(wsum > 0, w / torch.clamp(wsum, min=1e-30), uniform)
+
+
+def segment_sum(values, ids, num_segments: int) -> torch.Tensor:
+    """``[G]`` float32 per-segment sums of ``values [D]`` (``ids [D]`` int
+    in ``[0, G)``), deterministic on the card: a one-hot ``[G, D]`` mask
+    and a row reduce."""
+    v = _f32(values)
+    ids = torch.as_tensor(ids, device=v.device).long()
+    onehot = ids[None, :] == torch.arange(num_segments, device=v.device)[
+        :, None]
+    return torch.where(onehot, v[None, :], torch.zeros((), device=v.device)
+                       ).sum(dim=1)
 
 
 def normalize_weights(weights, mask=None) -> torch.Tensor:
@@ -136,22 +147,6 @@ def weighted_sum_stacked(stacked, w, *, out_dtype=None):
             leaf.dtype if out_dtype is None else out_dtype)
 
     return tree_map(agg, stacked)
-
-
-def segment_sum_stacked(stacked, coeff, ids, num_groups: int, *,
-                        out_dtype=None):
-    """Per-group Σ_{i∈g} coeff_i · leaf[i] → ``[G, ...]`` per leaf (the
-    intra-fog Eq. 1 reduce), f32 accumulation."""
-    ids = torch.as_tensor(ids).long()
-
-    def red(leaf):
-        cb = coeff.reshape((-1,) + (1,) * (leaf.dim() - 1))
-        out = torch.zeros((num_groups,) + tuple(leaf.shape[1:]),
-                          dtype=torch.float32, device=leaf.device)
-        out.index_add_(0, ids.to(leaf.device), cb * leaf.float())
-        return out.to(leaf.dtype if out_dtype is None else out_dtype)
-
-    return tree_map(red, stacked)
 
 
 def aggregate_stacked(stacked, w, *, segment_ids=None,

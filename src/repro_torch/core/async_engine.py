@@ -29,14 +29,17 @@ reference's ``_draw_latency`` does.  Fault draws come from
 its per-event fault key as it splits a round's).  Tests replace both
 functions to feed the reference's draws.  The candidate round draws from
 ``state.rng`` at event 0 and from ``device_generator(start_event + t)``
-after, as ``run_rounds_fused`` does; the int8 codec from
+after, as ``run_rounds_fused`` does, and the returned state carries
+``device_generator(start_event + events)``; the int8 codec draws from
 ``comms_generator(start_event + t)``.
 
 With ``mean_latency=0`` and ``quorum >= D`` every event is a full barrier
 and the loop equals ``EdgeEngine.run_rounds_fused`` within 1e-5 (delta
-form against the direct reduce).  The fog topology (``topology=``) and
-live traffic (``stream=``, ``fleet=``) raise ``NotImplementedError``
-naming their ROADMAP item.
+form against the direct reduce).  A fog topology (``topology=``) carries
+a ``[G, ...]`` stack of fog models: arrivals fold into their own group
+(the kernel's segment form) and every ``local_steps``-th event collapses
+the tier.  Live traffic (``stream=``, ``fleet=``) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -51,8 +54,10 @@ from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.engine import (_UNPORTED_FUSED, CODEC_SPAN,
-                                     EngineState, _rows, _where_rows,
+                                     EngineState, _reduce, _rows,
+                                     _where_rows, copy_generator,
                                      reject_unported)
 from repro_torch.core.hetero import DECAYS
 from repro_torch.core.model_adapter import excluded_paths
@@ -264,10 +269,25 @@ def run_events_fused(engine, state: EngineState, events: int, *,
        dispatched next; live devices still in flight age one version when
        something was accepted; an infinite ``t_event`` freezes the clock.
 
+    ``topology`` (``core.topology.FogTopology``): each slot is dispatched
+    its group's fog model; on a fog-local event the accepted deltas fold
+    into their own group, ``F_g ← F_g + mix_rate · Σ_{i∈g} αᵢ·sentᵢ``
+    (the kernel's segment form; a silent group keeps its model, and no
+    launch when nothing is accepted); every ``local_steps``-th event
+    (absolute index) is a sync that sets every group to ``Σ_g β_g F_g +
+    mix_rate · Σ wᵢ·sentᵢ`` (the flat update at G = 1, bit for bit).
+    Staleness ages by the versions of the model a device was dispatched
+    from (its group's on a fog-local event), guards take per-group
+    medians, and the latency and compute profiles scale the latency means
+    and step budgets.  The returned fog model is the ``[G, ...]`` stack,
+    and ``agg_acc`` that of its slot-share mix.
+
     A call starts the clock at 0 with every device dispatched and
     staleness 0 (chaining restarts it: work in flight at the end of a call
     is re-run, not delivered); pass ``start_event`` = events completed so
-    far so the draws do not repeat.  ``hetero`` contributes its compute
+    far so the draws do not repeat.  The returned state carries the
+    generator of event ``start_event + events``, as ``resume_state(
+    next_round=start_event + events)`` would install it.  ``hetero`` contributes its compute
     profile (step limits) only; ``straggler_rate > 0`` is refused, the
     latency model being the straggler model.
 
@@ -277,10 +297,11 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     ``timer_fired``, and ``device_accs`` / ``agg_acc`` with a test set;
     ``live`` under churn, ``crashed`` / ``dropped`` / ``corrupted`` with
     faults, ``rejected`` / ``clipped`` / ``upload_norms`` / ``accepted``
-    with guards.  ``state.pending`` holds the deltas still in flight and
+    with guards; ``fog_sync``, ``beta`` and ``group_accept`` with a
+    topology.  ``state.pending`` holds the deltas still in flight and
     ``state.staleness`` their ages."""
-    reject_unported("run_events_fused", _UNPORTED_EVENTS,
-                    topology=topology, stream=stream, fleet=fleet)
+    reject_unported("run_events_fused", _UNPORTED_EVENTS, stream=stream,
+                    fleet=fleet)
     if async_cfg is None:
         raise ValueError("run_events_fused needs an AsyncConfig "
                          "(async_cfg=)")
@@ -308,16 +329,29 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     if guards is not None and guards.policy == "off":
         guards = None
     D, dev, trainer = engine.num_devices, engine.device, engine.trainer
-    step_limit = None
-    if hetero is not None:
-        limits = hetero_mod.device_step_limits(
-            hetero, D, engine.cfg.train_steps_per_acq)
-        if limits is not None:
-            step_limit = torch.as_tensor(limits, device=dev)
+    if topology is not None:
+        topology.validate_for(D)
+    limits = (None if hetero is None else hetero_mod.device_step_limits(
+        hetero, D, engine.cfg.train_steps_per_acq))
+    means = device_latency_means(async_cfg, D)
+    if topology is not None:
+        # a fog group's compute profile caps its slots' step budgets, and
+        # its latency profile scales their latency means
+        limits = topo_mod.topology_step_limits(
+            topology, D, engine.cfg.train_steps_per_acq, base=limits)
+        means = topo_mod.topology_latency_means(topology, means)
+        G = topology.num_groups
+        gid = topology.segment_ids(dev)
+        gid_np = topology.ids
+        syncs = topo_mod.sync_schedule(topology, events, start_event) > 0
+        # the cloud-side estimate between syncs: the slot-share mix
+        share = torch.as_tensor(topology.group_sizes(), dtype=torch.float32,
+                                device=dev) / D
+    step_limit = None if limits is None else torch.as_tensor(limits,
+                                                             device=dev)
     codec = comms if comms is not None and comms.lossy else None
     guarded = faults is not None or guards is not None
     rates = faults_mod.rates_vector(faults)
-    means = device_latency_means(async_cfg, D)
     quorum = (None if async_cfg.quorum is None
               else min(max(async_cfg.quorum, 1), D))
     timer = None if async_cfg.timer is None else np.float32(async_cfg.timer)
@@ -343,12 +377,24 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     t_now = np.float32(0.0)
 
     counters.count_dispatch()
+    # a copy of the state's generator: two calls from one state draw alike
     params, opt_state, pool, gen = (state.params, state.opt_state,
-                                    state.pool, state.rng)
+                                    state.pool, copy_generator(state.rng))
     excl = frozenset(excluded_paths(trainer.adapter, params))
-    fog = tree_map(lambda a: a[0], params)
+    if topology is None:
+        fog = tree_map(lambda a: a[0], params)
+    else:
+        # the [G, ...] fog stack: each group's first slot (rows within a
+        # group are identical by the dispatch protocol); its excluded
+        # leaves stay as they enter
+        first = torch.as_tensor(topo_mod.first_slots(topology), device=dev)
+        fog = {path: torch.index_select(leaf, 0, first)
+               for path, leaf in tree_items(params)}
     recs: dict = {}       # device rows, one list a key
     host: dict = {}       # host rows, one list a key
+    # a flat {path: leaf} dict → a tree shaped like the params
+    unflat = lambda flat: tree_map_with_path(lambda path, _: flat[path],
+                                             state.params)
     to_dev = lambda v: torch.as_tensor(v, device=dev)
     for t in range(events):
         e_abs = start_event + t
@@ -397,10 +443,18 @@ def run_events_fused(engine, state: EngineState, events: int, *,
         dispatch_d, commit_d, arrived_d, recv_d = to_dev(
             np.stack([dispatch, commit, arrived, recv]))
 
-        # ---- 1. dispatch and the candidate round (masked commit)
-        incoming = tree_map_with_path(
-            lambda path, own, f: own if path in excl else f.unsqueeze(0),
-            params, fog)
+        # ---- 1. dispatch and the candidate round (masked commit): with a
+        # topology each slot reads its own group's fog model
+        if topology is None:
+            incoming = tree_map_with_path(
+                lambda path, own, f: own if path in excl else f.unsqueeze(0),
+                params, fog)
+        else:
+            rows = dict(tree_items(topo_mod.take_group_rows(
+                {p: f for p, f in fog.items() if p not in excl}, gid)))
+            incoming = tree_map_with_path(
+                lambda path, own: own if path in excl else rows[path], params)
+            del rows
         params = _where_rows(dispatch_d, incoming, params)
         opt_state = _where_rows(dispatch_d, trainer.opt.init(params),
                                 opt_state)
@@ -443,7 +497,9 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 norms = faults_mod.stacked_norms(sent)
                 reject, clip, scale = faults_mod.guard_verdict(
                     norms, faults_mod.stacked_finite(sent), recv_d,
-                    policy=guards.policy, factor=guards.norm_factor)
+                    policy=guards.policy, factor=guards.norm_factor,
+                    group_ids=None if topology is None else gid,
+                    num_groups=None if topology is None else G)
                 accept = recv_d * (1.0 - reject)
                 if guards.policy == "clip":
                     sent = tree_map(lambda a: a * _rows(scale, a), sent)
@@ -455,15 +511,43 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 raw, to_dev(staleness), accept, kind=async_cfg.decay,
                 rate=async_cfg.decay_rate)
             accept_any = bool(accept.sum() > 0)
-            if accept_any:
-                delta = (agg_mod.aggregate_stacked(
-                    sent, w, scales=scales, out_dtype=torch.float32)
-                    if sent else {})
-                fog = tree_map_with_path(
-                    lambda path, f: (f if path in excl
-                                     else f + async_cfg.mix_rate
-                                     * delta[path]), fog)
+            eta = async_cfg.mix_rate
+            red = dict(scales=scales, out_dtype=torch.float32)
+            sync = topology is None or bool(syncs[t])
+            if topology is not None:
+                # both Eq. 1 levels' weights from the same decayed basis
+                alpha, beta, group_any = topo_mod.two_tier_weights(
+                    raw * agg_mod.staleness_decay(
+                        to_dev(staleness), kind=async_cfg.decay,
+                        rate=async_cfg.decay_rate), accept, gid, G)
+                row.update(fog_sync=torch.tensor(float(sync), device=dev),
+                           beta=beta,
+                           group_accept=agg_mod.segment_sum(accept, gid, G))
+            if accept_any and sync:
+                # the flat Eq. 1 update (a sync event collapses the tier:
+                # the β-mixed fog base plus the flat arrivals, β ≡ 1.0 at
+                # G = 1 so the flat update bit for bit)
+                delta = _reduce(sent, w, **red)
+                if topology is None:
+                    fog = tree_map_with_path(
+                        lambda path, f: (f if path in excl
+                                         else f + eta * delta[path]), fog)
+                else:
+                    base = topo_mod.group_reduce_stacked(
+                        {p: fog[p] for p in delta}, beta)
+                    fog.update({p: (base[p] + eta * delta[p]).unsqueeze(
+                        0).expand_as(fog[p]) for p in delta})
+                    del base
                 del delta
+            elif accept_any:
+                # a fog-local event: each accepted delta folds into its own
+                # group with per-group alphas; a silent group keeps its
+                # model (the where drops its uniform fallback)
+                fold = _reduce(sent, alpha, segments=(gid, G), **red)
+                fog.update({p: torch.where(
+                    _rows(group_any, fog[p]), fog[p] + eta * fold[p], fog[p])
+                    for p in fold})
+                del fold
             else:
                 # nothing accepted: aggregate nothing (the uniform
                 # fallback would fold in-flight deltas in early, and again
@@ -482,7 +566,12 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                         arrivals=arrived.sum(dtype=np.float32),
                         timer_fired=bool(np.isfinite(t_timer)
                                          and t_timer <= t_quorum))
-            aging = np.int32(accept_any)
+            if sync:
+                aging = np.int32(accept_any)
+            else:
+                # staleness counts versions of the model a device was
+                # dispatched from: its group's on a fog-local event
+                aging = group_any.cpu().numpy()[gid_np].astype(np.int32)
             if live is not None:
                 aging = aging * (live > 0).astype(np.int32)
                 hrow["live"] = live
@@ -498,9 +587,13 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 t_now = t_event
             if has_val:
                 row["device_accs"] = accs
+                # with a topology the cloud-side estimate, the slot-share
+                # mix of the fog models (the fog model itself at G = 1)
+                model = (fog if topology is None else unflat(
+                    topo_mod.group_reduce_stacked(fog, share)))
                 row["agg_acc"] = agg_mod.stacked_accuracy(
                     trainer.eval_logits,
-                    tree_map(lambda a: a.unsqueeze(0), fog),
+                    tree_map(lambda a: a.unsqueeze(0), model),
                     engine.test_images, engine.test_labels)[0]
         for k, v in row.items():
             recs.setdefault(k, []).append(v)
@@ -508,8 +601,13 @@ def run_events_fused(engine, state: EngineState, events: int, *,
             host.setdefault(k, []).append(v)
     out = {k: torch.stack(v) for k, v in recs.items()}
     out.update({k: to_dev(np.stack(v)) for k, v in host.items()})
+    if topology is not None:
+        fog = unflat(fog)
+    # the generator the next event draws from, as resume_state installs it:
+    # a chained call then equals a restored one
     final = EngineState(
-        params, opt_state, pool, gen, () if residual is None else residual,
+        params, opt_state, pool, engine.device_generator(start_event + events),
+        () if residual is None else residual,
         pending, to_dev(staleness), () if live is None else to_dev(live))
     return final, out, fog
 

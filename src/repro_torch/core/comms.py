@@ -28,10 +28,11 @@
   ``EngineState.residual`` across rounds and chained calls, updated only
   where the device uploaded.
 
-The per-tier ledger of a fog topology (``tier_report``,
-``attach_round_tiers``, ``tier_telemetry``) waits for the topology slice
-and raises.  ``fog_compression`` is a field and, without a topology,
-ignored, as in the reference.
+* **Tiers** of a fog topology (``core.topology``): ``tier_report`` splits
+  the ledger into the edge→fog link (every round) and the fog→cloud link
+  (sync rounds only, one ``fog_compression``-coded delta a group), with
+  the ``cross_tier_reduction`` headline.  ``fog_compression`` is ignored
+  without a topology, as in the reference.
 """
 from __future__ import annotations
 
@@ -55,9 +56,6 @@ VALUE_BYTES = 4
 SCALE_BYTES = 4
 METADATA_BYTES_PER_UPLOAD = 12
 LABEL_BYTES = 4  # int32 class label riding with an uploaded sample
-
-_TIERS = "Queue 1 item 13 (fog topology and sharding)"
-
 
 def index_bytes(n: int) -> int:
     """Width of one top-k flat index for an n-element tensor."""
@@ -460,20 +458,123 @@ def attach_round_comms(reports, summary) -> None:
         rep["comms"] = {**static, **entry}
 
 
-def tier_report(cfg, params_template, upload_mask, topology, *,
-                start_round: int = 0):
-    raise NotImplementedError(
-        f"comms.tier_report is not ported yet: ROADMAP.md {_TIERS}")
+def tier_report(cfg: Optional[CommsConfig], params_template, upload_mask,
+                topology, *, start_round: int = 0) -> Dict[str, Any]:
+    """Per-tier byte accounting of a fog-topology run.
+
+    * edge→fog, every round: each uploading device ships its
+      (edge-codec) delta plus metadata to its fog node; with an
+      ``uplink_scale`` profile the report also prices these bytes in
+      relative cost units (accounting only);
+    * fog→cloud, only on sync rounds (``(t + 1) % local_steps == 0`` at
+      absolute indices from ``start_round``): each of the G groups ships
+      ONE delta coded with ``cfg.fog_compression``, plus metadata, and
+      the cloud re-dispatches one model a group.
+
+    ``flat_cross_tier_uplink_bytes`` is what the same participation
+    record would have shipped straight to the cloud (edge codec);
+    ``cross_tier_reduction`` divides it by the fog→cloud bytes (``inf``
+    when nothing synced)."""
+    from repro_torch.core.topology import sync_schedule
+
+    mask = np.asarray(upload_mask, np.float64)
+    rounds, D = mask.shape
+    topology.validate_for(D)
+    sync = np.asarray(sync_schedule(topology, rounds, start_round),
+                      np.float64)
+    G = topology.num_groups
+    pbytes = param_bytes(params_template)
+    ubytes = upload_bytes(cfg, params_template)
+    fog_cfg = (CommsConfig(compression=cfg.fog_compression,
+                           topk_fraction=cfg.topk_fraction)
+               if cfg is not None else None)
+    fbytes = upload_bytes(fog_cfg, params_template)
+    scale = (np.asarray(topology.uplink_scale, np.float64)[topology.ids]
+             if topology.uplink_scale is not None else None)
+
+    per_round = []
+    cum_edge = 0
+    cum_cloud = 0
+    for t in range(rounds):
+        uploads = int(mask[t].sum())
+        edge_up = uploads * (ubytes + METADATA_BYTES_PER_UPLOAD)
+        synced = bool(sync[t] > 0)
+        cloud_up = G * (fbytes + METADATA_BYTES_PER_UPLOAD) if synced else 0
+        cum_edge += edge_up
+        cum_cloud += cloud_up
+        rec = {
+            "round": t,
+            "uploads": uploads,
+            "fog_sync": synced,
+            "edge_fog_uplink_bytes": edge_up,
+            "fog_cloud_uplink_bytes": cloud_up,
+            "fog_edge_downlink_bytes": D * pbytes,
+            "cloud_fog_downlink_bytes": G * pbytes if synced else 0,
+            "cumulative_edge_fog_bytes": cum_edge,
+            "cumulative_fog_cloud_bytes": cum_cloud,
+        }
+        if scale is not None:
+            rec["edge_fog_uplink_cost"] = float(
+                (mask[t] * scale).sum()
+                * (ubytes + METADATA_BYTES_PER_UPLOAD))
+        per_round.append(rec)
+
+    flat_cloud = int(mask.sum()) * (ubytes + METADATA_BYTES_PER_UPLOAD)
+    return {
+        "num_groups": G,
+        "local_steps": int(topology.local_steps),
+        "sync_rounds": int(sync.sum()),
+        "edge_compression": "none" if cfg is None else cfg.compression,
+        "fog_compression": "none" if cfg is None else cfg.fog_compression,
+        "fog_upload_bytes_per_group": fbytes,
+        "rounds": per_round,
+        "edge_fog_bytes_total": cum_edge,
+        "fog_cloud_bytes_total": cum_cloud,
+        "flat_cross_tier_uplink_bytes": flat_cloud,
+        "cross_tier_reduction": (flat_cloud / cum_cloud
+                                 if cum_cloud else float("inf")),
+    }
+
+
+TIER_STATIC_FIELDS = ("num_groups", "local_steps", "edge_compression",
+                      "fog_compression", "fog_upload_bytes_per_group")
 
 
 def attach_round_tiers(reports, summary) -> None:
-    raise NotImplementedError(
-        f"comms.attach_round_tiers is not ported yet: ROADMAP.md {_TIERS}")
+    """Give each round report, in place, its ``"tiers"`` entry: the static
+    topology facts plus that round's per-tier byte counts."""
+    static = {k: summary[k] for k in TIER_STATIC_FIELDS}
+    for rep, entry in zip(reports, summary["rounds"]):
+        rep["tiers"] = {**static, **entry}
 
 
-def tier_telemetry(round_reports):
-    raise NotImplementedError(
-        f"comms.tier_telemetry is not ported yet: ROADMAP.md {_TIERS}")
+def tier_telemetry(round_reports) -> Optional[Dict[str, Any]]:
+    """Experiment-level per-tier telemetry from round reports that carry
+    ``"tiers"`` entries: the static facts, the per-tier totals and
+    ``cross_tier_reduction``, edge→fog bytes over fog→cloud bytes (``inf``
+    when no round synced)."""
+    rounds = [r for r in round_reports if "tiers" in r]
+    if not rounds:
+        return None
+    last = rounds[-1]["tiers"]
+    edge = last["cumulative_edge_fog_bytes"]
+    cloud = last["cumulative_fog_cloud_bytes"]
+    return {
+        "num_groups": last["num_groups"],
+        "local_steps": last["local_steps"],
+        "edge_compression": last["edge_compression"],
+        "fog_compression": last["fog_compression"],
+        "sync_rounds": sum(1 for r in rounds if r["tiers"]["fog_sync"]),
+        "edge_fog_bytes_total": edge,
+        "fog_cloud_bytes_total": cloud,
+        "cross_tier_reduction": (edge / cloud if cloud else float("inf")),
+        "bytes_per_round": [
+            {"round": r["round"],
+             "edge_fog_uplink_bytes": r["tiers"]["edge_fog_uplink_bytes"],
+             "fog_cloud_uplink_bytes": r["tiers"]["fog_cloud_uplink_bytes"],
+             "fog_sync": r["tiers"]["fog_sync"]}
+            for r in rounds],
+    }
 
 
 def experiment_telemetry(round_reports) -> Optional[Dict[str, Any]]:

@@ -29,24 +29,31 @@ model reports device 0's.  ``hetero=`` (``core.hetero``) turns the
 participation mask into an arrival mask with straggler buffering,
 staleness-decayed weights and per-device step budgets; ``faults=`` /
 ``guards=`` / ``live_mask=`` (``core.faults``) add churn, crashes, lost
-and corrupted uploads, label noise and the fog node's guards.  The
-topology and fleet options raise ``NotImplementedError`` naming their
-ROADMAP item.  ``run_async`` drops the round barrier
-(``core.async_engine``).
+and corrupted uploads, label noise and the fog node's guards;
+``topology=`` (``core.topology``) splits the fleet into fog groups that
+aggregate their own slots every round (the kernel's segment form) and
+sync to a global model every ``local_steps``-th round.  The fleet option
+raises ``NotImplementedError`` naming its ROADMAP item.  ``run_async``
+drops the round barrier (``core.async_engine``).
 
 Samples keep their dtype and rank end to end: float32 images ``[28, 28,
 1]`` for LeNet, int32 token sequences ``[S]`` for the LM adapters.
 
 Randomness comes from one ``torch.Generator`` per round on the engine's
 device (``EngineState.rng``), seeded from ``cfg.seed`` and the absolute
-round index, never from global state.  Its bits are not the reference's
+round index, never from global state.  The fused rounds draw from a copy
+of the state's generator and return the generator of the round after
+their last, as ``resume_state`` installs it, so a chained call, a
+restored one and the uninterrupted run draw alike.  Its bits are not the
+reference's
 threefry bits, so parity tests run the RNG-free configuration (dropout
 off, the window covering the whole pool).  The legacy loop draws from the
 same one generator, device after device, so it equals the vmap round on
 that configuration only.  The int8 codec draws its rounding uniforms from
 a generator of its own a round (``comms_generator``); the participation,
-straggler and fault draws are numpy's, seeded with the absolute round
-index, so the card and the CPU see the same masks.
+straggler and fault draws and the int8 fog codec's uniforms
+(``fog_uniforms``) are numpy's, seeded with the absolute round index, so
+the card and the CPU see the same masks.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
 from repro_torch.kernels.acquisition_scores import acquisition_scores
@@ -77,9 +85,11 @@ CODEC_SPAN = "comms_codec"
 
 # options of the reference's run_rounds_fused that later slices port
 _UNPORTED_FUSED = {
-    "topology": "Queue 1 item 13 (fog topology and sharding)",
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
 }
+
+# offset of the fog codec's seed from ``cfg.seed``
+FOG_STREAM = 0x666F67
 
 
 def reject_unported(where: str, table: Dict[str, str], **options) -> None:
@@ -134,6 +144,13 @@ def stack_device_data(device_data: Sequence, device):
     return as_t(images), as_t(labels), as_t(valid)
 
 
+def copy_generator(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device in ``gen``'s state."""
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
 def broadcast_params(params0, D: int):
     """One model → the same model on every one of D devices ``[D, ...]``."""
     return tree_map(lambda a: a.unsqueeze(0).expand(D, *a.shape).clone(),
@@ -184,17 +201,17 @@ def _backlog(leaf, prev, pend, up):
     return b
 
 
-def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
-                     generator, pending=None):
-    """Eq. 1 in delta form over a lossy wire: ``params_prev[0] + Σ_i w_i ·
-    C(b_i + e_i)`` with the backlog ``b = params − params_prev (+
-    pending)``, reduced by the fused-aggregation kernel from the wire
-    payload.  ``residual`` (the error-feedback tree, or None without it)
-    is updated IN PLACE to ``(b + e) − C(b + e)`` on the rows of devices
-    that uploaded (``upload [D] > 0``); the others keep theirs.
-    ``pending`` (the stragglers' buffer, or None) is updated IN PLACE to
-    0 where the device uploaded and to ``b`` elsewhere.  Excluded leaves
-    carry no delta (their buffers stay 0) and report device 0's value.
+def _encode_uploads(cfg, params, params_prev, residual, upload, excl,
+                    generator, pending=None):
+    """The wire payload of a round over a lossy wire: ``(payload,
+    scales)``, dicts over the leaves outside ``excl`` of each device's
+    ``C(b_i + e_i)`` with the backlog ``b = params − params_prev (+
+    pending)`` (``scales`` None but for int8 codes).  ``residual`` (the
+    error-feedback tree, or None without it) is updated IN PLACE to ``(b
+    + e) − C(b + e)`` on the rows of devices that uploaded (``upload [D] >
+    0``); the others keep theirs.  ``pending`` (the stragglers' buffer, or
+    None) is updated IN PLACE to 0 where the device uploaded and to ``b``
+    elsewhere.  Excluded leaves carry no delta (their buffers stay 0).
     Works leaf by leaf, so one leaf's temporaries are alive at a time."""
     prev = dict(tree_items(params_prev))
     res = None if residual is None else dict(tree_items(residual))
@@ -218,13 +235,72 @@ def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
                                             res[path]))
                 del sent
             del to_send
-    reduced = (agg_mod.aggregate_stacked(
-        payload, w, scales=scales if cfg.compression == "int8" else None,
-        out_dtype=torch.float32) if payload else {})
+    return payload, (scales if cfg.compression == "int8" else None)
+
+
+def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
+                     generator, pending=None):
+    """Eq. 1 in delta form over a lossy wire, the flat fused round's comms
+    step: ``params_prev[0] + Σ_i w_i · C(b_i + e_i)``, reduced by the
+    fused-aggregation kernel from the wire payload of ``_encode_uploads``
+    (which updates ``residual`` and ``pending`` in place).  Excluded
+    leaves report device 0's value."""
+    payload, scales = _encode_uploads(cfg, params, params_prev, residual,
+                                      upload, excl, generator, pending)
+    reduced = _reduce(payload, w, scales, out_dtype=torch.float32)
     del payload
+    prev = dict(tree_items(params_prev))
     return tree_map_with_path(
         lambda path, leaf: (leaf[0] if path in excl
                             else prev[path][0] + reduced[path]), params)
+
+
+def _reduce(rows, w, scales=None, *, segments=None, out_dtype=None):
+    """Eq. 1 of the upload ``rows`` (a dict of ``[D, ...]`` payloads, int8
+    codes with ``scales``) by ``w [D]`` through the fused-aggregation
+    kernel: flat, or per fog group with ``segments = (ids [D] int64, G)``
+    (``[G, ...]`` leaves)."""
+    if not rows:
+        return {}
+    seg = {} if segments is None else dict(segment_ids=segments[0],
+                                           num_segments=segments[1])
+    return agg_mod.aggregate_stacked(rows, w, scales=scales,
+                                     out_dtype=out_dtype, **seg)
+
+
+def fog_uniforms(seed: int, round_idx: int, group: int, shapes,
+                 device) -> List[torch.Tensor]:
+    """The int8 fog→cloud codec's rounding uniforms for fog group
+    ``group`` in round ``round_idx`` (absolute index): one float32 tensor
+    a leaf of ``shapes``, with numpy from the seed ``(seed + FOG_STREAM,
+    round_idx, group)``."""
+    rng = np.random.default_rng([seed + FOG_STREAM, round_idx, group])
+    return [torch.from_numpy(rng.random(tuple(shape), dtype=np.float32)).to(
+        device) for shape in shapes]
+
+
+def _fog_codec(cfg, fog_delta, seed: int, round_idx: int):
+    """The fog→cloud codec ``cfg`` over each fog group's delta sum
+    (``fog_delta``: a dict of ``[G, ...]`` float32 leaves, one upload a
+    row): what the cloud reconstructs, float32.  int8 draws its rounding
+    uniforms from ``fog_uniforms``."""
+    leaves = list(fog_delta.items())
+    if not leaves:
+        return {}
+    G, dev = leaves[0][1].shape[0], leaves[0][1].device
+    with torch.profiler.record_function(CODEC_SPAN):
+        if cfg.compression == "int8":
+            shapes = [x.shape[1:] for _, x in leaves]
+            draws = [fog_uniforms(seed, round_idx, g, shapes, dev)
+                     for g in range(G)]
+            out = {}
+            for i, (path, x) in enumerate(leaves):
+                u = torch.stack([draws[g][i] for g in range(G)])
+                out[path] = comms_mod.dequantize_int8(
+                    *comms_mod.quantize_int8_rows(x, u))
+            return out
+        return {path: comms_mod.decode_rows(*comms_mod.encode_rows(cfg, x))
+                for path, x in leaves}
 
 
 def _upload_rows(cfg, params, params_prev, residual, upload, excl,
@@ -525,16 +601,37 @@ class EdgeEngine:
         freeze.  The fault draws come from ``faults.round_draws``
         (numpy, at the absolute round index).
 
+        ``topology`` (``core.topology.FogTopology``) runs the rounds as
+        a two-tier edge × fog hierarchy: every round each fog group
+        reduces its own accepted slots (intra-fog Eq. 1, the kernel's
+        segment form; a group that accepts nothing keeps its model), and
+        every ``local_steps``-th round (absolute index) the fog models
+        sync to the global Eq. 1 model (inter-fog β ∝ group arrival
+        mass), which is the flat round's; each slot is dispatched its
+        group's model.  The flat reduce still runs every round, as the
+        global candidate the ``agg_acc`` record reads.  With a lossy
+        codec, faults, guards or ``comms.fog_compression`` the rounds take
+        the delta form: the global model is ``Σ_g β_g F_g`` plus the flat
+        reduce of the uploads, or, under the fog codec, plus the β-mix of
+        each group's coded delta sum (int8 uniforms from
+        ``fog_uniforms``).  Guards take per-group medians.  A call
+        rebuilds the ``[G, ...]`` fog models from each group's first slot,
+        so a call that starts between syncs continues the groups' models.
+        ``uniform_topology(D, 1)`` is the flat run bit for bit;
+        ``aggregation="optimal"`` is refused.
+
         Returns ``(state, recs, aggregated_params)``: ``recs`` holds
         ``[rounds, ...]`` rows ``weights``, ``upload_mask``, ``n_labeled``
         (and ``device_accs`` / ``agg_acc`` with a validation set;
         ``staleness`` with hetero; ``live`` under churn; ``crashed`` /
         ``dropped`` / ``corrupted`` with faults; ``rejected`` /
-        ``clipped`` / ``upload_norms`` / ``accepted`` with guards);
-        ``aggregated_params`` is the last round's fog model (its excluded
-        leaves are device 0's)."""
-        reject_unported("run_rounds_fused", _UNPORTED_FUSED,
-                        topology=topology, fleet=fleet)
+        ``clipped`` / ``upload_norms`` / ``accepted`` with guards;
+        ``fog_sync``, ``beta`` and ``group_accept`` with a topology);
+        ``aggregated_params`` is the last round's fog model (with a
+        topology the slot-share mix of the fog models; its excluded leaves
+        are device 0's).  The returned state carries the generator of
+        round ``start_round + rounds``."""
+        reject_unported("run_rounds_fused", _UNPORTED_FUSED, fleet=fleet)
         if aggregation not in _AGGREGATIONS:
             raise ValueError(f"unknown aggregation {aggregation!r}: "
                              f"use {' | '.join(_AGGREGATIONS)}")
@@ -563,18 +660,24 @@ class EdgeEngine:
                 "pass either an explicit live_mask host schedule or "
                 "faults.death_rate/birth_rate for the churn process, not "
                 "both (set the rates to 0 to drive churn from the schedule)")
+        if topology is not None:
+            topology.validate_for(self.num_devices)
+            if aggregation == "optimal":
+                raise ValueError(
+                    "aggregation='optimal' picks one argmax model — there "
+                    "is no two-level Eq. 1 decomposition to run per fog "
+                    "group; use average | weighted | fedavg_n with a "
+                    "topology")
         if state.rng is None:
             raise ValueError("the state has no generator (a restored "
                              "checkpoint): call resume_state first")
         self._check_capacity(state, rounds=rounds)
         D = self.num_devices
         dev = self.device
-        step_limit = None
+        limits = None
         if hetero is not None:
             limits = hetero_mod.device_step_limits(
                 hetero, D, self.cfg.train_steps_per_acq)
-            if limits is not None:
-                step_limit = torch.as_tensor(limits, device=dev)
             if hetero.straggler_rate > 0.0:
                 if upload_mask is not None or upload_fraction < 1.0:
                     raise ValueError(
@@ -583,6 +686,12 @@ class EdgeEngine:
                         "not both (set straggler_rate=0 to drive hetero "
                         "rounds from a host schedule)")
                 upload_fraction = 1.0 - hetero.straggler_rate
+        if topology is not None:
+            # a fog group's compute profile caps its slots' step budgets
+            limits = topo_mod.topology_step_limits(
+                topology, D, self.cfg.train_steps_per_acq, base=limits)
+        step_limit = (None if limits is None
+                      else torch.as_tensor(limits, device=dev))
         if upload_mask is not None:
             m = np.asarray(upload_mask, np.float32)
             if m.ndim == 1:
@@ -631,12 +740,37 @@ class EdgeEngine:
         guarded = faults is not None or guards is not None
         keeps_model = hetero is not None or churn or guards is not None
         rates = faults_mod.rates_vector(faults)
+        fog_codec = None
+        if topology is not None:
+            G = topology.num_groups
+            gid = topology.segment_ids(dev)
+            segments = (gid, G)
+            syncs = topo_mod.sync_schedule(topology, rounds, start_round) > 0
+            fog_comp = "none" if comms is None else comms.fog_compression
+            if fog_comp != "none":
+                # the reference's fog-tier codec: the config's defaults
+                # but for the compression
+                fog_codec = comms_mod.CommsConfig(compression=fog_comp)
+        # the fog codec compresses per-group DELTA sums, so it takes the
+        # delta form as faults and guards do
+        rows_form = guarded or (fog_codec is not None and codec is None)
 
         counters.count_dispatch()
         trainer = self.trainer
+        # a copy of the state's generator: a state is a value, and two
+        # calls from it draw alike
         params, opt_state, pool, gen = (state.params, state.opt_state,
-                                        state.pool, state.rng)
+                                        state.pool, copy_generator(state.rng))
         excl = frozenset(excluded_paths(trainer.adapter, params))
+        fog = None
+        if topology is not None:
+            # the [G, ...] fog models: each group's first slot (rows within
+            # a group are identical by the dispatch protocol, which also
+            # covers a call that starts between syncs)
+            first = torch.as_tensor(topo_mod.first_slots(topology),
+                                    device=dev)
+            fog = {path: torch.index_select(leaf, 0, first)
+                   for path, leaf in tree_items(params) if path not in excl}
         recs: Dict[str, list] = {}
         agg = None
         for t in range(rounds):
@@ -704,8 +838,9 @@ class EdgeEngine:
                 raw = torch.nn.functional.one_hot(
                     torch.argmax(masked), D).float()
             with torch.no_grad():
-                sent = None
-                if guarded:
+                sync = topology is None or bool(syncs[t])
+                sent = scales = None
+                if rows_form:
                     # the guards judge whole uploads: build every leaf's
                     # received rows before any weight exists
                     sent = _upload_rows(
@@ -715,12 +850,22 @@ class EdgeEngine:
                         sent = faults_mod.corrupt_stacked(
                             faults.corrupt_mode, sent, corrupt * recv,
                             rates[faults_mod.RATE_CORRUPT_SCALE])
+                elif codec is not None:
+                    sent, scales = _encode_uploads(
+                        codec, params, params_prev, residual, upload, excl,
+                        self.comms_generator(r_abs), pending)
+                # the wire payload (bfloat16 values, int8 codes) reduces to
+                # float32; decoded rows keep their dtype
+                red = dict(scales=scales, out_dtype=(
+                    None if rows_form else torch.float32))
                 accept = recv
                 if guards is not None:
                     norms = faults_mod.stacked_norms(sent)
                     reject, clip, scale = faults_mod.guard_verdict(
                         norms, faults_mod.stacked_finite(sent), recv,
-                        policy=guards.policy, factor=guards.norm_factor)
+                        policy=guards.policy, factor=guards.norm_factor,
+                        group_ids=None if topology is None else gid,
+                        num_groups=None if topology is None else G)
                     accept = recv * (1.0 - reject)
                     if guards.policy == "clip":
                         sent = tree_map(lambda a: a * _rows(scale, a), sent)
@@ -741,47 +886,100 @@ class EdgeEngine:
                     # fallback would fold in unweighted work, and every
                     # banked backlog twice)
                     w = torch.zeros_like(w)
+                if topology is not None:
+                    # intra-fog alpha (per-group normalization of the same
+                    # basis) and inter-fog beta (group arrival-mass shares:
+                    # alpha·beta is the flat weight)
+                    alpha, beta, group_any = topo_mod.two_tier_weights(
+                        decayed, accept, gid, G)
+                    row.update(fog_sync=torch.tensor(float(sync), device=dev),
+                               beta=beta, group_accept=agg_mod.segment_sum(
+                                   accept, gid, G))
 
-                if guarded:
-                    reduced = (agg_mod.aggregate_stacked(sent, w)
-                               if sent else {})
+                prev = dict(tree_items(params_prev))
+                fog_cand = None
+                if sent is not None:
+                    # delta form: BASE + Σ w_i · sent_i, the base the
+                    # dispatched model (flat) or Σ_g β_g F_g (topology: the
+                    # dispatched model bit for bit at G = 1)
+                    if topology is None:
+                        base = {path: prev[path][0] for path in sent}
+                    else:
+                        base = topo_mod.group_reduce_stacked(fog, beta)
+                        if fog_codec is not None or not sync:
+                            fog_delta = _reduce(sent, alpha, segments=segments,
+                                                **red)
+                            fog_cand = {path: fog[path] + fog_delta[path]
+                                        for path in fog}
+                    if fog_codec is not None:
+                        # the fog→cloud link carries each group's
+                        # compressed delta sum
+                        reduced = topo_mod.group_reduce_stacked(
+                            _fog_codec(fog_codec, fog_delta, self.cfg.seed,
+                                       r_abs), beta)
+                        del fog_delta
+                    else:
+                        reduced = _reduce(sent, w, **red)
                     del sent
-                    prev = dict(tree_items(params_prev))
                     agg = tree_map_with_path(
                         lambda path, leaf: (
                             leaf[0] if path in excl
-                            else prev[path][0] + reduced[path]), params)
-                    del reduced
-                elif codec is not None:
-                    agg = _delta_aggregate(
-                        codec, params, params_prev, residual, w, upload,
-                        excl, self.comms_generator(r_abs), pending)
+                            else base[path] + reduced[path]), params)
+                    del reduced, base
                 else:
                     # direct Eq. 1, plus Σ w_i · pending_i for buffering
                     # hetero: equal to the delta form since Σw = 1, and
                     # the synchronous round itself when nothing is pending
                     agg = _aggregate_shared(params, w, excl)
+                    held = None
                     if pending is not None:
                         held = {path: leaf for path, leaf
                                 in tree_items(pending) if path not in excl}
-                        late = agg_mod.aggregate_stacked(held, w) \
-                            if held else {}
+                        late = _reduce(held, w)
                         agg = tree_map_with_path(
                             lambda path, leaf: (leaf if path in excl
                                                 else leaf + late[path]), agg)
+                        del late
+                    if topology is not None and not sync:
+                        # each fog group's own Eq. 1 (a fog-local round)
+                        shared = {path: leaf for path, leaf
+                                  in tree_items(params) if path not in excl}
+                        fog_cand = _reduce(shared, alpha, segments=segments)
+                        if held is not None:
+                            late = _reduce(held, alpha, segments=segments)
+                            fog_cand = {path: fog_cand[path] + late[path]
+                                        for path in fog_cand}
+                            del late
+                    if held is not None:
                         # transmitted backlogs clear, missed rounds bank
                         # this round's work
-                        prev = dict(tree_items(params_prev))
                         for path, leaf in tree_items(params):
                             if path in held:
                                 _backlog(leaf, prev[path], held[path],
                                          _rows(upload, leaf) > 0)
                 if keeps_model and not accept_any:
                     # the fog node re-dispatches its previous model
-                    prev = dict(tree_items(params_prev))
                     agg = tree_map_with_path(
-                        lambda path, leaf: (leaf[0] if path in excl
-                                            else prev[path][0]), params)
+                        lambda path, leaf: (
+                            leaf[0] if path in excl
+                            else (prev[path][0] if topology is None
+                                  else fog[path][0])), params)
+                if topology is not None:
+                    # sync rounds broadcast the global model to every fog
+                    # group; fog-local rounds advance each group's own
+                    # model, and a group that accepted nothing keeps its
+                    aggs = dict(tree_items(agg))
+                    if sync:
+                        if accept_any:
+                            fog = {path: aggs[path].unsqueeze(0).expand(
+                                (G,) + tuple(aggs[path].shape))
+                                for path in fog}
+                    else:
+                        fog = {path: torch.where(
+                            _rows(group_any, fog[path]), fog_cand[path],
+                            fog[path]) for path in fog}
+                    del aggs
+                del fog_cand, prev
             del params_prev
             if hetero is not None:
                 # dead devices do not age: their backlog gets no staler
@@ -801,15 +999,34 @@ class EdgeEngine:
             for k, v in row.items():
                 recs.setdefault(k, []).append(v)
             # re-dispatch: fresh optimizer, pools persist; excluded leaves
-            # keep each device's own trained value
+            # keep each device's own trained value; with a topology each
+            # slot reads its own group's fog model
+            dispatched = dict(tree_items(
+                broadcast_params(agg, D) if topology is None
+                else topo_mod.take_group_rows(fog, gid)))
             params = tree_map_with_path(
-                lambda path, trained, fog: trained if path in excl else fog,
-                params, broadcast_params(agg, D))
+                lambda path, trained: (trained if path in excl
+                                       else dispatched[path]), params)
+            del dispatched
             opt_state = trainer.opt.init(params)
         out = {k: torch.stack(v) for k, v in recs.items()}
+        if topology is not None:
+            # one returned model: the slot-share mix of the fog models
+            # (1.0 at G = 1; exact after a sync round), excluded leaves
+            # device 0's
+            share = torch.as_tensor(topology.group_sizes(),
+                                    dtype=torch.float32, device=dev) / D
+            mixed = topo_mod.group_reduce_stacked(fog, share)
+            agg = tree_map_with_path(
+                lambda path, leaf: leaf[0] if path in excl else mixed[path],
+                params)
+        # the generator the next round draws from, as resume_state installs
+        # it: a chained call then equals the uninterrupted run
         none = lambda b: () if b is None else b
-        return (EngineState(params, opt_state, pool, gen, none(residual),
-                            none(pending), none(staleness), none(live)),
+        return (EngineState(params, opt_state, pool,
+                            self.device_generator(start_round + rounds),
+                            none(residual), none(pending), none(staleness),
+                            none(live)),
                 out, agg)
 
     def run_async(self, state: EngineState, events: int, *, async_cfg=None,

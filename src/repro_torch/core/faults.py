@@ -191,19 +191,25 @@ def update_liveness(live, u_death, u_birth, death_rate,
 
 def liveness_schedule(num_devices: int, rounds: int, *, death_rate: float,
                       birth_rate: float, seed: int = 0,
-                      init=None) -> np.ndarray:
+                      init=None, group_ids=None) -> np.ndarray:
     """Host churn schedule ``[rounds, D]`` (0/1 float) for
     ``run_rounds_fused(live_mask=...)``: the same birth/death semantics as
-    ``update_liveness``, from its own numpy stream.  ``init`` (``[D]``,
-    default all live) seeds round 0's transition.  (The reference's
-    per-group draw, ``group_ids=``, comes with the fog topology.)"""
+    ``update_liveness``, from its own numpy stream (the reference's, draw
+    for draw).  ``init`` (``[D]``, default all live) seeds round 0's
+    transition.  ``group_ids`` (``[D]`` ints, e.g. ``FogTopology.ids``)
+    draws once per fog group and broadcasts the draw to the group's slots:
+    a fog node going dark takes its edge group with it."""
     rng = np.random.default_rng([seed, 0x6C697665])
+    ids = None if group_ids is None else np.asarray(group_ids, np.int64)
+    n_draw = num_devices if ids is None else int(ids.max()) + 1
     live = (np.ones((num_devices,), np.float32) if init is None
             else np.asarray(init, np.float32))
     out = np.zeros((rounds, num_devices), np.float32)
     for t in range(rounds):
-        survive = rng.random(num_devices) >= death_rate
-        join = rng.random(num_devices) < birth_rate
+        survive = rng.random(n_draw) >= death_rate
+        join = rng.random(n_draw) < birth_rate
+        if ids is not None:
+            survive, join = survive[ids], join[ids]
         live = np.where(live > 0, survive, join).astype(np.float32)
         out[t] = live
     return out
@@ -260,18 +266,20 @@ def stacked_finite(tree) -> torch.Tensor:
 
 
 def _masked_median(norms: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """The LOWER median of ``norms`` over ``valid``: the inf-filled sort's
-    entry ``(count - 1) // 2``, clipped to the vector (inf when nothing is
-    valid)."""
-    filled = torch.where(valid, norms, torch.full_like(norms, float("inf")))
-    order = torch.sort(filled).values
-    count = valid.sum()
+    """The LOWER median of ``norms [D]`` over each row of ``valid [G, D]``:
+    the inf-filled sort's entry ``(count - 1) // 2``, clipped to the
+    vector (inf when nothing is valid); ``[G]``."""
+    filled = torch.where(valid, norms[None, :],
+                         torch.full_like(norms, float("inf")))
+    order = torch.sort(filled, dim=1).values
+    count = valid.sum(dim=1, keepdim=True)
     idx = torch.clamp(torch.div(count - 1, 2, rounding_mode="floor"), 0,
                       norms.shape[0] - 1)
-    return order[idx]
+    return torch.gather(order, 1, idx)[:, 0]
 
 
-def guard_verdict(norms, finite, mask, *, policy: str, factor):
+def guard_verdict(norms, finite, mask, *, policy: str, factor,
+                  group_ids=None, num_groups: Optional[int] = None):
     """The fog node's guard decision over the round's received uploads.
 
     ``norms`` / ``finite`` are the ``[D]`` upload statistics, ``mask`` the
@@ -280,9 +288,10 @@ def guard_verdict(norms, finite, mask, *, policy: str, factor):
     float vectors: rejected uploads get zero weight (and their leaves
     zeroed), clipped ones (clip policy) are scaled by ``scale`` back to
     the threshold.  The median is ``_masked_median``'s over the finite
-    arrivals, so an empty round has an infinite threshold.  (The
-    reference's per-group medians, ``group_ids=``, come with the fog
-    topology.)"""
+    arrivals, so an empty round has an infinite threshold.  With a fog
+    topology (``group_ids [D]`` and ``num_groups``) each fog node takes
+    the median of its own arrivals only; ``num_groups=1`` is the flat
+    verdict exactly."""
     if policy not in ("drop", "clip"):
         raise ValueError(f"guard policy must be 'drop' or 'clip' here, "
                          f"got {policy!r}")
@@ -290,7 +299,15 @@ def guard_verdict(norms, finite, mask, *, policy: str, factor):
     m = _f32(mask, norms.device)
     finite = torch.as_tensor(finite, device=norms.device)
     valid = (m > 0) & finite & torch.isfinite(norms)
-    med = _masked_median(norms, valid)
+    if group_ids is None:
+        med = _masked_median(norms, valid[None, :])[0]
+    else:
+        if num_groups is None:
+            raise ValueError("group_ids requires a static num_groups")
+        ids = torch.as_tensor(group_ids, device=norms.device).long()
+        member = ids[None, :] == torch.arange(num_groups,
+                                              device=norms.device)[:, None]
+        med = _masked_median(norms, valid[None, :] & member)[ids]
     thresh = _f32(factor, norms.device) * med
     # an all-zero median leaves nothing to compare against
     outlier = valid & (med > 0) & (norms > thresh)

@@ -16,8 +16,11 @@ loop over a numpy ``ActivePool``), and ``fused`` (``EdgeEngine
 optional compressed uploads, heterogeneous fleets, faults and guards).
 ``engine="async"`` drops the round barrier: the fog node aggregates on a
 FedBuff quorum or a timer over simulated device latencies
-(``core.async_engine``).  ``run_experiment`` runs the ``paper``,
-``massive``, ``hetero``, ``async``, ``churn`` and ``lm`` scenarios.  The
+(``core.async_engine``).  ``topology=`` (``core.topology``) makes the fog
+tier explicit on both: fog groups aggregate their own slots and sync to
+the cloud every ``local_steps``-th round.  ``run_experiment`` runs the
+``paper``, ``massive``, ``hetero``, ``async``, ``churn``, ``fog`` and
+``lm`` scenarios.  The
 ``lm`` fleet swaps LeNet for an LM adapter (``core.model_adapter``) on
 token shards (``data.lm``).
 Everything runs on ``device`` (default ``"cuda"``; see
@@ -38,6 +41,7 @@ from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters
 from repro_torch.core import faults as faults_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import topology as topo_mod
 from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
 from repro_torch.core.async_engine import AsyncConfig
@@ -345,7 +349,6 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
 
 # options of the reference's round functions that later slices port
 _UNPORTED_OPTIONS = {
-    "topology": "Queue 1 item 13 (fog topology and sharding)",
     "mesh": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
@@ -365,6 +368,7 @@ _FEATURE_ENGINES = {
     "async_cfg": ("async",),
     "faults": ("fused", "async"),
     "guards": ("fused", "async"),
+    "topology": ("fused", "async"),
 }
 
 
@@ -424,6 +428,15 @@ def _check_faults_engine(faults: Optional[FaultConfig],
     if guards is not None:
         _require_engine("guards", engine,
                         "aggregation guards run inside the fused rounds")
+
+
+def _check_topology_engine(topology, engine: str) -> None:
+    """Two-tier fog aggregation runs in the fused rounds and the async
+    event loop."""
+    if topology is not None:
+        _require_engine("topology", engine,
+                        "two-tier aggregation runs inside the fused rounds "
+                        "and the async event loop")
 
 
 def _to_device(tree, device):
@@ -549,14 +562,21 @@ def run_federated_rounds(cfg: FederatedALConfig,
     ``guards`` and the compute profile of ``hetero``.  Each report adds
     ``sim_time`` (simulated seconds), ``arrivals``, ``timer_fired`` and
     the per-device ``staleness``.  Arrivals come from the latency model,
-    so ``upload_fraction < 1`` is refused."""
+    so ``upload_fraction < 1`` is refused.
+
+    ``topology=FogTopology(...)`` (``"fused"`` and ``"async"``) runs the
+    two-tier hierarchy; each report adds ``fog_sync``, ``beta`` and
+    ``group_accept`` and a ``"tiers"`` entry (``comms.tier_report``: the
+    edge→fog and fog→cloud bytes of the round).  The async engine's
+    ``[G, ...]`` fog stack is returned as its slot-share mix."""
     _check_engine(engine, ("vmap", "legacy", "classic", "fused", "async"))
     _check_comms_engine(comms, "fused" if engine == "async" else engine)
     reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
-                    topology=topology, stream=stream, fleet=fleet)
+                    stream=stream, fleet=fleet)
     _check_async_engine(async_cfg, engine, hetero)
     _check_hetero_engine(hetero, engine)
     _check_faults_engine(faults, guards, engine)
+    _check_topology_engine(topology, engine)
     if engine == "async" and upload_fraction < 1.0:
         raise ValueError(
             "engine='async' decides arrivals from the latency model; "
@@ -589,7 +609,15 @@ def run_federated_rounds(cfg: FederatedALConfig,
                 async_cfg=(async_cfg if async_cfg is not None
                            else default_async(len(device_data))),
                 aggregation=cfg.aggregation, comms=comms, faults=faults,
-                guards=guards, hetero=hetero)
+                guards=guards, hetero=hetero, topology=topology)
+            if topology is not None:
+                # the event loop returns the [G, ...] fog stack: report its
+                # slot-share mix (the flat model at G = 1)
+                share = torch.as_tensor(topology.group_sizes(),
+                                        dtype=torch.float32,
+                                        device=trainer.device)
+                params = topo_mod.group_reduce_stacked(
+                    params, share / float(len(device_data)))
         else:
             mask = None
             if upload_fraction < 1.0:
@@ -599,7 +627,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
             _, recs, params = eng.run_rounds_fused(
                 eng.init_state(params), rounds, upload_mask=mask,
                 aggregation=cfg.aggregation, comms=comms, hetero=hetero,
-                faults=faults, guards=guards)
+                faults=faults, guards=guards, topology=topology)
         rows = {k: v.cpu().numpy() for k, v in recs.items()}
         extra = [k for k in ("staleness",) + faults_mod.REPORT_KEYS
                  if k in rows]
@@ -620,8 +648,16 @@ def run_federated_rounds(cfg: FederatedALConfig,
                 },
                 **{k: rows[k][t].tolist() for k in extra},
             })
+            if topology is not None:
+                report.update(fog_sync=bool(rows["fog_sync"][t]),
+                              beta=rows["beta"][t].tolist(),
+                              group_accept=rows["group_accept"][t].tolist())
             reports.append(report)
-        return attach_comms(rows["upload_mask"], rows["n_labeled"])
+        attach_comms(rows["upload_mask"], rows["n_labeled"])
+        if topology is not None:
+            comms_mod.attach_round_tiers(reports, comms_mod.tier_report(
+                comms, params, rows["upload_mask"], topology))
+        return params, reports
 
     def aggregate_round(t, refined, counts):
         nonlocal params
@@ -751,6 +787,32 @@ def churn_config(num_devices: int = 64, *, seed: int = 0,
     return massive_config(num_devices, seed=seed, **overrides)
 
 
+# Hierarchical fog scenario (scenario="fog"): the non-IID small-budget
+# fleet in fog groups that sync to the cloud every DEFAULT_FOG_LOCAL_STEPS-th
+# round.
+DEFAULT_FOG_LOCAL_STEPS = 4
+
+
+def fog_config(num_devices: int = 64, *, seed: int = 0,
+               **overrides) -> FederatedALConfig:
+    """Preset for the hierarchical fog-topology regime: the small-budget
+    fleet on ``dirichlet_split`` shards; pair with a ``FogTopology``
+    (``default_topology(D)`` in ``scenario="fog"``)."""
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
+def default_topology(num_devices: int,
+                     num_groups: Optional[int] = None) -> topo_mod.FogTopology:
+    """The ``FogTopology`` of ``scenario="fog"``: balanced contiguous
+    groups (G = D/16 clamped to [2, 16] unless given, at most D) syncing
+    to the cloud every ``DEFAULT_FOG_LOCAL_STEPS``-th round."""
+    if num_groups is None:
+        num_groups = max(2, min(16, num_devices // 16))
+    num_groups = min(num_groups, num_devices)
+    return topo_mod.uniform_topology(num_devices, num_groups,
+                                     local_steps=DEFAULT_FOG_LOCAL_STEPS)
+
+
 # LM scenario defaults (scenario="lm"): token geometry of the synthetic
 # Markov source (data.lm) and of the reduced SSM adapter the preset builds.
 LM_VOCAB = 256
@@ -778,8 +840,9 @@ def lm_config(num_devices: int = 8, *, seed: int = 0,
 
 
 # scenario → (native engine, preset maker or None = explicit cfg, split,
-# default {hetero | faults | guards: config} the caller's options override;
-# the async engine's own default is default_async(D))
+# default {hetero | faults | guards | topology: config, or a maker of it
+# from D} the caller's options override; the async engine's own default is
+# default_async(D))
 SCENARIOS: Dict[str, tuple] = {
     "paper": ("vmap", None, "digits", {}),
     "massive": ("fused", massive_config, "digits", {}),
@@ -788,11 +851,12 @@ SCENARIOS: Dict[str, tuple] = {
     "async": ("async", async_config, "dirichlet", {}),
     "churn": ("fused", churn_config, "dirichlet",
               {"faults": DEFAULT_FAULTS, "guards": DEFAULT_GUARDS}),
+    "fog": ("fused", fog_config, "dirichlet",
+            {"topology": default_topology}),
     "lm": ("fused", lm_config, "lm", {}),
 }
 # the reference's other scenarios, and the ROADMAP item that ports each
 _UNPORTED_SCENARIOS = {
-    "fog": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
 }
 
@@ -834,8 +898,13 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     shards on the async engine with ``default_async(num_devices)``;
     ``rounds`` counts fog aggregation events, and each repeat adds an
     ``"async"`` summary (``async_engine.report_telemetry``: simulated
-    seconds, arrivals, timer events, staleness).  An explicit ``hetero=``
-    / ``async_cfg=`` / ``faults=`` / ``guards=`` wins over the scenario's
+    seconds, arrivals, timer events, staleness).  ``scenario="fog"`` runs
+    ``fog_config(num_devices)`` on the same shards on the fused engine
+    with ``default_topology(num_devices)`` (G = D/16 in [2, 16], a cloud
+    sync every ``DEFAULT_FOG_LOCAL_STEPS``-th round); each repeat adds a
+    ``"tiers"`` summary (``comms.tier_telemetry``: per-tier bytes and
+    ``cross_tier_reduction``).  An explicit ``hetero=`` / ``async_cfg=`` /
+    ``faults=`` / ``guards=`` / ``topology=`` wins over the scenario's
     default."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import (dirichlet_split,
@@ -843,7 +912,7 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
     reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
-                    topology=topology, stream=stream, fleet=fleet)
+                    stream=stream, fleet=fleet)
     if scenario is not None:
         if scenario in _UNPORTED_SCENARIOS:
             raise NotImplementedError(
@@ -861,11 +930,13 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         hetero = dynamics.get("hetero") if hetero is None else hetero
         faults = dynamics.get("faults") if faults is None else faults
         guards = dynamics.get("guards") if guards is None else guards
+        if topology is None and "topology" in dynamics:
+            topology = dynamics["topology"](cfg.num_devices)
     else:
         split = "digits"
     if cfg is None:
         raise ValueError("pass cfg or a preset scenario (massive | hetero | "
-                         "async | churn | lm)")
+                         "async | churn | fog | lm)")
     engine = "vmap" if engine is None else engine
     device = resolve_device(device)
 
@@ -902,7 +973,7 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
                 cfg_rep, shards, seed_set, test, rounds=rounds,
                 engine=engine, comms=comms, hetero=hetero,
                 async_cfg=async_cfg, faults=faults, guards=guards,
-                device=device)
+                topology=topology, device=device)
             rep_report = {
                 "rounds": round_reports,
                 "comms": comms_mod.experiment_telemetry(round_reports)}
@@ -915,9 +986,12 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
             if faults is not None or guards is not None:
                 rep_report["faults"] = faults_mod.report_summary(
                     round_reports)
+            if topology is not None:
+                rep_report["tiers"] = comms_mod.tier_telemetry(round_reports)
             reports.append(rep_report)
         else:
             _check_faults_engine(faults, guards, engine)
+            _check_topology_engine(topology, engine)
             _check_async_engine(async_cfg, engine, hetero)
             _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
                                                 test, engine=engine,

@@ -17,7 +17,9 @@ calls.  For tensors on the CPU it runs ``fused_aggregate_plain`` (the port
 of ``repro.kernels.ref.fused_agg_ref``); for tensors on the card it
 launches the kernel once per group of up to 32 leaves (LeNet has 10, each
 LM tree 11), or raises on what the kernel does not take.  There is no
-fallback from one to the other.  ``launches`` counts kernel launches.
+fallback from one to the other.  ``launches`` counts kernel launches,
+``segment_launches`` those of them in segment form (a fog topology's
+intra-fog reduce).
 
 ``tile_plan`` is the kernel's tile table for one tree shape, built once
 per shape: which columns each tile covers, which leaves are read with
@@ -37,6 +39,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 launches = 0
+segment_launches = 0
 
 DECAY_KINDS = ("none", "exp", "poly")
 MAX_LEAVES = 32           # leaf pointers per launch (the kernel's kMaxLeaves)
@@ -85,8 +88,9 @@ def fused_aggregate_plain(stacked, weights, *, staleness=None, mask=None,
             w = w * agg._f32(mask, dev)
     if segment_ids is None:
         return agg.weighted_sum_stacked(tree, w, out_dtype=out_dtype)
-    return agg.segment_sum_stacked(tree, w, segment_ids, num_segments,
-                                   out_dtype=out_dtype)
+    from repro_torch.core.topology import segment_sum_stacked
+    return segment_sum_stacked(tree, w, segment_ids, num_segments,
+                               out_dtype=out_dtype)
 
 
 _ENTRIES = {}
@@ -260,7 +264,7 @@ def fused_aggregate(stacked, weights, *, staleness=None, mask=None,
     fn = _entry(dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     kind_id = DECAY_KINDS.index(kind)
-    global launches
+    global launches, segment_launches
     for k, (first, stop) in enumerate(plan.groups):
         count = stop - first
         arr = ctypes.c_void_p * count
@@ -275,6 +279,7 @@ def fused_aggregate(stacked, weights, *, staleness=None, mask=None,
             raise RuntimeError(f"fused-aggregation kernel launch failed: CUDA "
                                f"error {err}")
         launches += 1
+        segment_launches += seg is not None
 
     results = iter(outs)
 

@@ -444,10 +444,14 @@ def test_rejections(fleet):
     with pytest.raises(ValueError, match="validation set"):
         no_test.run_async(no_test.init_state(p0), 1, async_cfg=SYNC_LIMIT,
                           aggregation="weighted")
-    for name, item in (("topology", "item 13"), ("stream", "item 14"),
-                       ("fleet", "item 14")):
+    for name, item in (("stream", "item 14"), ("fleet", "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             run(**{name: object()})
+    # the fog topology runs (tests/port_torch/test_torch_topology.py)
+    from repro_torch.core.topology import uniform_topology
+    _, recs, fog = run(topology=uniform_topology(D, 2))
+    assert recs["fog_sync"].tolist() == [1.0]
+    assert tree_leaves(fog)[0].shape[0] == 2
     cfg = eng.cfg
     with pytest.raises(ValueError, match="engine='async'"):
         fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,

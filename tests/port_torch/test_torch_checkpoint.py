@@ -7,7 +7,11 @@ equal.  The port writes ``rng_key_data`` as zeros, so a reference state
 whose keys hold zero data saves to the very same bytes.  A resume on the
 CPU (2 rounds, save, load, ``resume_state``, 1 round) must equal the 3
 uninterrupted rounds bit for bit, with hetero buffering, faults, guards
-and int8 uploads with error feedback all on.
+and int8 uploads with error feedback all on, and so must a chained call
+(2 rounds, then 1 on the returned state).  An async restore (2 events,
+save, load, ``resume_state``, 2 events) must equal the chained
+continuation bit for bit, with faults, guards and int8 uploads (the
+reference's ``test_async_resume_exact``).
 """
 import os
 
@@ -26,6 +30,7 @@ from repro_torch.checkpoint import (_msgpack, latest_round,  # noqa: E402
                                     load_engine_state, load_pytree,
                                     load_round, save_engine_state,
                                     save_pytree, save_round)
+from repro_torch.core.async_engine import AsyncConfig  # noqa: E402
 from repro_torch.core.comms import CommsConfig  # noqa: E402
 from repro_torch.core.engine import EdgeEngine, EngineState  # noqa: E402
 from repro_torch.core.faults import FaultConfig, GuardConfig  # noqa: E402
@@ -236,3 +241,71 @@ def test_resume_equals_the_uninterrupted_run(tmp_path):
         assert torch.equal(a, b)
     assert tree_leaves(s1.residual) and tree_leaves(s1.pending)
     assert r3["live"].min() == 0 or r3["crashed"].any()
+
+
+def _fleet(n, **cfg_kw):
+    cfg = massive_config(n, acquisitions=1, train_steps_per_acq=2,
+                         initial_train_steps=2, pool_window=16, mc_samples=2,
+                         **cfg_kw)
+    shards = dirichlet_split(make_digit_dataset(120, seed=0), n, seed=0)
+    seed_set, test = make_digit_dataset(10, seed=11), make_digit_dataset(
+        20, seed=5)
+    eng = EdgeEngine(Trainer(cfg, device="cpu"), cfg, shards, seed_set,
+                     test, total_acquisitions=4, device="cpu")
+    return eng, eng.trainer.init_params(torch.Generator().manual_seed(0))
+
+
+def _equal_runs(a, b):
+    (sa, ra, fa), (sb, rb, fb) = a, b
+    for x, y in zip(tree_leaves(fa), tree_leaves(fb), strict=True):
+        assert torch.equal(x, y)
+    assert set(ra) == set(rb)
+    for k in ra:
+        assert torch.equal(ra[k], rb[k]), k
+    for x, y in zip(_state_leaves(sa), _state_leaves(sb), strict=True):
+        assert torch.equal(x, y)
+
+
+def test_chained_rounds_equal_the_uninterrupted_run():
+    """2 rounds, then 1 with ``start_round=2`` on the returned state (no
+    checkpoint): bit-equal to 3 uninterrupted rounds with MC dropout on
+    (the generator the first call returns is the one round 2 draws
+    from), with faults and int8 uploads."""
+    eng, p0 = _fleet(4)
+    kw = dict(faults=FaultConfig(crash_rate=0.2, drop_rate=0.2,
+                                 label_noise_rate=0.2),
+              comms=CommsConfig(compression="int8"))
+    s3, r3, f3 = eng.run_rounds_fused(eng.init_state(p0), 3, **kw)
+    s2, _, _ = eng.run_rounds_fused(eng.init_state(p0), 2, **kw)
+    s1, r1, f1 = eng.run_rounds_fused(s2, 1, start_round=2, **kw)
+    _equal_runs((s3, {k: v[2:] for k, v in r3.items()}, f3), (s1, r1, f1))
+
+
+def test_async_resume_equals_the_chained_continuation(tmp_path):
+    """The reference's ``test_async_resume_exact`` (D = 6): 2 events with
+    churn, crashes, drops, corruption, label noise, guards ``"drop"`` and
+    int8 uploads with error feedback; save, load, ``resume_state(2)``, 2
+    events with ``start_event=2``, bit-equal to 2 events chained on the
+    in-memory state."""
+    eng, p0 = _fleet(6)
+    kw = dict(async_cfg=AsyncConfig(quorum=3, timer=4.0, dist="exp",
+                                    mean_latency=1.0, latency_skew=4.0),
+              faults=FaultConfig(death_rate=0.2, birth_rate=0.5,
+                                 crash_rate=0.1, drop_rate=0.1,
+                                 corrupt_rate=0.2, label_noise_rate=0.1),
+              guards=GuardConfig(policy="drop"),
+              comms=CommsConfig(compression="int8"))
+    st, r2, _ = eng.run_async(eng.init_state(p0), 2, **kw)
+    path = str(tmp_path / "async.msgpack")
+    save_engine_state(path, st, metadata={"next_event": 2})
+    chained = eng.run_async(st, 2, start_event=2, **kw)
+    # a call draws from a copy of the state's generator: a second call
+    # from the same state draws alike
+    _equal_runs(chained, eng.run_async(st, 2, start_event=2, **kw))
+    loaded, meta = load_engine_state(path, device="cpu")
+    for a, b in zip(_state_leaves(st), _state_leaves(loaded), strict=True):
+        assert torch.equal(a, b)
+    loaded = eng.resume_state(loaded, next_round=meta["next_event"])
+    restored = eng.run_async(loaded, 2, start_event=2, **kw)
+    _equal_runs(chained, restored)
+    assert tree_leaves(st.residual) and r2["arrivals"].sum() > 0

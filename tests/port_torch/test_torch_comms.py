@@ -124,8 +124,17 @@ def test_config_validation_and_unported_tiers():
                 dict(topk_fraction=1.5)):
         with pytest.raises(ValueError):
             CommsConfig(**bad)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        comms.tier_report(None, _lenet(), np.ones((1, 2)), object())
+    # the per-tier ledger of a fog topology (core.topology)
+    from repro.core.topology import uniform_topology as j_uniform
+    from repro_torch.core.topology import uniform_topology
+    cfg = CommsConfig(compression="int8", fog_compression="topk")
+    mask = np.ones((4, 2), np.float32)
+    got = comms.tier_report(cfg, _lenet(), mask,
+                            uniform_topology(2, 2, local_steps=2))
+    assert got == jcomms.tier_report(
+        jcomms.CommsConfig(**vars(cfg)), interop.params_to_jax(_lenet()),
+        mask, j_uniform(2, 2, local_steps=2))
+    assert got["sync_rounds"] == 2 and got["fog_compression"] == "topk"
     assert comms.topk_k(10, 1e-9) == 1 and comms.topk_k(10, 1.0) == 10
     assert comms.index_bytes(2**16 - 1) == 2 and comms.index_bytes(2**16) == 4
 
