@@ -115,15 +115,29 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     then with ``CommsConfig(fog_compression="int8")``: a segment launch
     every round (the delta form), the fog→cloud bytes exact, the fog
     model finite;
+20. the sharded fleet (``launch.mesh``): (a) massive, fog and async once
+    more unsharded and once on a one-rank NCCL mesh (``make_device_mesh()``,
+    the fog path ``make_fog_mesh(1, 1)``), each equal to its first run
+    (phases 9, 17, 19) bit for bit when the two unsharded runs repeat
+    their bits, else within their gap, with as many K1 and K2 launches;
+    the walls side by side; (b) massive at D = 256 split over two
+    processes that share the card through a gloo group this script
+    starts, CUDA tensors in the collectives: each rank's report and fog
+    model against the first unsharded run by the bars of
+    ``tests/port_torch/test_torch_mesh.py``, both ranks bit-equal, each
+    rank's wall, launches and global-shape draw bytes (a refusal of gloo
+    to take CUDA tensors is reported on its own line); every group is
+    destroyed after;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 and phases 15-17 and 19 again under
-    ``torch.profiler`` (wall, device-busy time, idle share, the kernels
-    with the most device time), and phase 13's int8 run and phase 14
-    with host activity too, for the device time of the codec (the
-    engine's ``comms_codec`` spans);
-18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17 and
-    19, K2's segment-form launches apart, error, times, bound), and last
-    the ``{"ok": true, "device": ...}`` line.
+    four paths of phases 8-10 and phases 15-17 and 19 again under the
+    CUDA activity tracer (wall, device-busy time, idle share, the
+    kernels with the most device time, and the host seconds spent
+    reading the trace), and phase 13's int8 run and phase 14 with host
+    activity too, for the device time of the codec (the kernels
+    launched inside the engine's ``comms_codec`` spans);
+18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19 and
+    20 (a), K2's segment-form launches of phase 19 apart, error, times,
+    bound), and last the ``{"ok": true, "device": ...}`` line.
 
 Each phase's heading shows the seconds since the start.
 
@@ -145,10 +159,18 @@ this file, the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# LM path A peaks at ~68 GiB of the card's 80; with fixed-size cached
+# segments the blocks that earlier phases left behind can leave no hole for
+# its largest [8, ...] leaf although enough memory is free in all.
+# Segments that grow in place leave none.  Set before torch touches CUDA;
+# the phase-20 processes inherit it.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
@@ -213,21 +235,58 @@ def timed(torch, fn, match: str = ""):
     return (dev[1] if match else dev[0]), "profiler (device)", host
 
 
-def profile_path(torch, fn):
-    """Run ``fn`` once under the profiler: ``(wall s, device-busy s, the
-    six kernels with the most device time as (name, ms, calls))``."""
-    from torch.profiler import ProfilerActivity, profile
+def trace_path(torch, fn, span: str = ""):
+    """Run ``fn`` once under the CUDA activity tracer (host activity too
+    when ``span`` names a profiler range, which the tracer then mirrors
+    on the device timeline): ``(wall s, device-busy s, (device ms of the
+    kernels that start inside the ``span`` mirrors, ms the mirrors cover)
+    or None, the six kernels with the most device time as (name, ms,
+    calls), host seconds spent reading the trace)``.  The profiler's
+    ``device_time_total`` of the span's key adds the two.  The trace's raw
+    events are read as they come: ``torch.profiler``'s parse, event tree
+    and ``key_averages`` spend host time on every event, which made most
+    of this phase's time when it used them (PERF.md)."""
+    from bisect import bisect_right
+    from torch.autograd import DeviceType, _disable_profiler
+    from torch.autograd.profiler import profile
+    prof = profile(use_device="cuda", use_cpu=bool(span), use_kineto=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    prof._prepare_trace()
+    prof._start_trace()
+    try:
         fn()
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    evs = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-           for ev in prof.key_averages() if ev.self_device_time_total > 0]
-    evs.sort(key=lambda e: -e[1])
-    busy = sum(e[1] for e in evs) / 1e3
-    return wall, busy, [(k[:70], round(ms, 3), n) for k, ms, n in evs[:6]]
+    finally:
+        wall = time.perf_counter() - t0
+        result = _disable_profiler()
+    t1 = time.perf_counter()
+    kernels, mirrors = {}, []
+    for ev in result.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        start, ns = ev.start_ns(), ev.duration_ns()
+        if span and ev.name() == span:
+            mirrors.append((start, start + ns))
+        else:
+            kernels.setdefault(ev.name(), []).append((start, ns))
+    totals = sorted(((name, sum(ns for _, ns in runs), len(runs))
+                     for name, runs in kernels.items()), key=lambda e: -e[1])
+    busy = sum(ns for _, ns, _ in totals) / 1e9
+    top = [(k[:70], round(ns / 1e6, 3), n) for k, ns, n in totals[:6]]
+    in_span = None
+    if span:
+        mirrors.sort()
+        lows = [lo for lo, _ in mirrors]
+
+        def inside(t):
+            i = bisect_right(lows, t) - 1
+            return i >= 0 and t <= mirrors[i][1]
+
+        in_span = (sum(ns for runs in kernels.values() for t, ns in runs
+                       if inside(t)) / 1e6,
+                   sum(hi - lo for lo, hi in mirrors) / 1e6)
+    return wall, busy, in_span, top, time.perf_counter() - t1
 
 
 def max_err(torch, got, want) -> float:
@@ -909,6 +968,7 @@ def run_lm_path(torch, fed, name, cfg, kernels):
         torch.Generator(device="cuda").manual_seed(0))))
     for k in kernels.values():
         k.launches = 0
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -922,7 +982,9 @@ def run_lm_path(torch, fed, name, cfg, kernels):
           f"{cfg.num_devices} devices; "
           f"aggregated_acc per round {accs}; wall {wall:.3f} s; launches "
           f"{launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, "
+          f"allocator {os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
     for r in rounds:
         wsum = sum(r["aggregation"]["weights"])
         acc = r["aggregated_acc"]
@@ -1647,7 +1709,7 @@ def run_churn_path(torch, fed, reset, read, tree_leaves):
         "resume_gap": resume_gap, "checkpoint_bytes": nbytes}
 
 
-def run_async_path(torch, fed, reset, read):
+def run_async_path(torch, fed, reset, read, first):
     """Phase 17: ``run_experiment(scenario="async", num_devices=256,
     rounds=8)``, ``default_async(256)`` over 8 events.  Each event runs a
     whole-fleet candidate round (K1 2 launches at R = 2) and, when it
@@ -1664,6 +1726,7 @@ def run_async_path(torch, fed, reset, read):
     wall = time.perf_counter() - t0
     launches = read()
     fog.check_finite(torch, "async")
+    first["async"] = (rep, fog.models[-1], wall, launches)
     del fog
     tel = rep["async"]
     accepting = sum(1 for r in rep["rounds"] if r["arrivals"] > 0)
@@ -1910,7 +1973,7 @@ class SegmentsPerRound:
         return [b - a for a, b in zip(marks, marks[1:])]
 
 
-def run_fog_path(torch, fed, comms, lenet, k2, reset, read):
+def run_fog_path(torch, fed, comms, lenet, k2, reset, read, first):
     """Phase 19: ``run_experiment(scenario="fog", num_devices=256,
     rounds=4)`` on ``default_topology(256)`` (G = 16, local_steps 4:
     rounds 0-2 fog-local, round 3 a sync): wall, ``fog_sync`` [0, 0, 0,
@@ -1935,6 +1998,8 @@ def run_fog_path(torch, fed, comms, lenet, k2, reset, read):
         wall = time.perf_counter() - t0
         launches = read()
         fog.check_finite(torch, name)
+        if cc is None:
+            first["fog"] = (rep, fog.models[-1], wall, launches)
         del fog
         rounds = rep["rounds"]
         segs = seg.per_round()
@@ -1990,28 +2055,228 @@ def run_fog_path(torch, fed, comms, lenet, k2, reset, read):
     return runs
 
 
-def profile_codec_path(torch, fn, span):
-    """Run ``fn`` once under the profiler with host and device activity:
-    ``(wall s, device-busy s, device ms inside the ``span`` ranges, the
-    six kernels with the most device time)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+def report_gap(a, b, where=""):
+    """``(largest |a − b| over the floats of two reports, the first place
+    they differ or None)``; an integer, bool, string or structure that
+    differs counts as an infinite gap."""
+    if isinstance(a, dict) or isinstance(a, (list, tuple)):
+        keys = (sorted(a) if isinstance(a, dict) else range(len(a)))
+        if (isinstance(a, dict) and set(a) != set(b)) or len(a) != len(b):
+            return float("inf"), where
+        worst, first = 0.0, None
+        for k in keys:
+            gap, at = report_gap(a[k], b[k], f"{where}/{k}")
+            if at is not None and first is None:
+                first = at
+            worst = max(worst, gap)
+        return worst, first
+    if isinstance(a, float) and isinstance(b, float):
+        if a == b or (a != a and b != b):
+            return 0.0, None
+        return abs(a - b), where
+    return (0.0, None) if a == b else (float("inf"), where)
+
+
+def fog_gap(torch, a, b):
+    """``(largest |a − b| over two fog models' leaves, entries beyond 1e-5
+    per leaf, the first leaf that differs or None)``."""
+    from repro_torch.tree import tree_items
+    worst, beyond, first = 0.0, {}, None
+    other = dict(tree_items(b))
+    for path, x in tree_items(a):
+        y = other[path]
+        if torch.equal(x, y):
+            continue
+        gap = (x.double() - y.double()).abs()
+        worst = max(worst, float(gap.max()))
+        beyond[path] = (int((gap > 1e-5).sum()), gap.numel())
+        first = first or path
+    return worst, beyond, first
+
+
+# scenario arguments of the paths phase 20 runs on a mesh
+SHARDED_PATHS = {"massive": dict(scenario="massive", num_devices=256,
+                                 rounds=2),
+                 "fog": dict(scenario="fog", num_devices=256, rounds=4),
+                 "async": dict(scenario="async", num_devices=256, rounds=8)}
+
+
+def run_sharded_paths(torch, fed, reset, read, first):
+    """Phase 20 (a): each of massive, fog and async once more unsharded and
+    once on a one-rank NCCL mesh (``make_device_mesh()``; the fog path on
+    ``make_fog_mesh(1, 1)``).  Against the path's first run (phases 9, 17
+    and 19): when the two unsharded runs repeat their bits, the meshed run
+    must too; else it must lie within their gap.  K1 and K2 launch as
+    often as unsharded.  The group is destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh, make_fog_mesh
+
+    meshes = {"massive": make_device_mesh(), "fog": make_fog_mesh(1, 1)}
+    meshes["async"] = meshes["massive"]
+    m = meshes["massive"]
+    print(f"  one-rank group: backend {m.backend}, world {m.world}, "
+          f"device {m.device}")
+    if m.backend != "nccl" or m.world != 1:
+        raise AssertionError(f"phase 20 (a) wants a one-rank NCCL group, "
+                             f"got {m.backend} over {m.world}")
+    out = {}
+    for name, kw in SHARDED_PATHS.items():
+        runs = {"first": first[name]}
+        for label, extra in (("unsharded", {}),
+                             ("one-rank nccl", {"mesh": meshes[name]})):
+            reset()
+            t0 = time.perf_counter()
+            with FogModels(fed) as fog:
+                rep = fed.run_experiment(**kw, **extra)[0]
+            torch.cuda.synchronize()
+            runs[label] = (rep, fog.models[-1], time.perf_counter() - t0,
+                           read())
+            del fog
+        gaps = {}
+        for label in ("unsharded", "one-rank nccl"):
+            rgap, rwhere = report_gap(runs["first"][0], runs[label][0])
+            fgap, _, fwhere = fog_gap(torch, runs["first"][1],
+                                      runs[label][1])
+            gaps[label] = (max(rgap, fgap), rwhere or fwhere)
+        walls = {k: v[2] for k, v in runs.items()}
+        launches = {k: v[3] for k, v in runs.items() if k != "first"}
+        print(f"  {name}: walls {walls}; launches {launches}; first run vs "
+              f"unsharded again: largest gap {gaps['unsharded'][0]:.3e} "
+              f"(first at {gaps['unsharded'][1]}); vs the one-rank NCCL "
+              f"mesh: {gaps['one-rank nccl'][0]:.3e} (first at "
+              f"{gaps['one-rank nccl'][1]})")
+        repeat, meshed = gaps["unsharded"][0], gaps["one-rank nccl"][0]
+        if repeat == 0.0 and gaps["unsharded"][1] is None:
+            if gaps["one-rank nccl"][1] is not None:
+                raise AssertionError(
+                    f"{name}: the one-rank mesh differs at "
+                    f"{gaps['one-rank nccl'][1]} (gap {meshed}) although "
+                    "two unsharded runs repeat their bits")
+        elif not meshed <= repeat:
+            raise AssertionError(f"{name}: one-rank mesh gap {meshed} over "
+                                 f"the run-to-run gap {repeat}")
+        for k in ("acquisition_scores", "fused_aggregation"):
+            if launches["one-rank nccl"][k] != runs["first"][3][k]:
+                raise AssertionError(
+                    f"{name}: {launches['one-rank nccl'][k]} {k} launches "
+                    f"on the mesh, {runs['first'][3][k]} unsharded")
+        out[name] = {"walls_s": walls, "launches": launches,
+                     "repeat_gap": repeat, "mesh_gap": meshed}
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return out
+
+
+def _gloo_rank(rank, out_dir, src):
+    """One of phase 20 (b)'s two processes: join a gloo group over a
+    ``FileStore``, run massive at D = 256 on a 2-way ``make_device_mesh()``
+    with CUDA tensors on the one card, and save the report, the fog model,
+    the wall, the launches and the global-shape draw bytes (or the
+    error)."""
+    import traceback
+    from datetime import timedelta
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+    got = {}
+    try:
+        from repro_torch.core import federated as fed
+        from repro_torch.kernels import acquisition_scores as k1
+        from repro_torch.kernels import fused_aggregation as k2
+        from repro_torch.launch import sharding
+        from repro_torch.launch.mesh import make_device_mesh
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(f"{out_dir}/store", 2), rank=rank,
+            world_size=2, timeout=timedelta(seconds=60))
+        mesh = make_device_mesh()
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        with FogModels(fed) as fog:
+            rep = fed.run_experiment(**SHARDED_PATHS["massive"],
+                                     mesh=mesh)[0]
         torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    avgs = prof.key_averages()
-    kern = [(ev.key, ev.self_device_time_total / 1e3, ev.count)
-            for ev in avgs if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    kern.sort(key=lambda e: -e[1])
-    busy = sum(e[1] for e in kern) / 1e3
-    codec = sum(ev.device_time_total for ev in avgs if ev.key == span) / 1e3
-    return wall, busy, codec, [(k[:70], round(ms, 3), n)
-                               for k, ms, n in kern[:6]]
+        got = {"rep": rep, "fog": fog.models[-1], "backend": mesh.backend,
+               "wall_s": time.perf_counter() - t0,
+               "launches": {"acquisition_scores": k1.launches,
+                            "fused_aggregation": k2.launches},
+               "drawn_bytes": dict(sharding.drawn_bytes)}
+    except Exception:
+        got = {"error": traceback.format_exc()}
+    torch.save(got, f"{out_dir}/rank{rank}.pt")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def run_gloo_split(torch, massive):
+    """Phase 20 (b): massive at D = 256 split over two processes that share
+    the card through a gloo group this script starts, CUDA tensors in the
+    collectives.  Held to the unsharded first run (``massive``: its report
+    and fog model) by the bars of ``tests/port_torch/test_torch_mesh.py``:
+    report floats within 1e-5 and integers equal; the fog model within
+    1e-5 but for at most ``comms.split_budget`` entries a leaf within the
+    fit's reach; both ranks bit-equal.  A refusal of gloo to take CUDA
+    tensors is reported on its own line, not worked around."""
+    import tempfile
+    from repro_torch.core import comms
+    ctx = torch.multiprocessing.get_context("spawn")
+    src = str(Path(__file__).resolve().parent / "src")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_gloo_rank, args=(r, tmp, src))
+                 for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(1.0, 300 - (time.perf_counter() - t0)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        secs = time.perf_counter() - t0
+        got = []
+        for r, p in enumerate(procs):
+            path = Path(tmp) / f"rank{r}.pt"
+            got.append(torch.load(path, weights_only=False,
+                                  map_location="cuda:0") if path.exists()
+                       else {"error": f"rank {r} saved nothing (exit code "
+                                      f"{p.exitcode})"})
+    errors = [g["error"] for g in got if "error" in g]
+    if errors:
+        text = errors[0].strip().splitlines()[-1]
+        if "gloo" in errors[0].lower() and "cuda" in errors[0].lower():
+            print(f"  phase 20 (b): gloo refused CUDA tensors: {text}")
+            return {"refused": text, "seconds": secs}
+        raise AssertionError("phase 20 (b) failed:\n" + "\n".join(errors))
+    rep, fog = massive[0], massive[1]
+    # 2 rounds x R 2 x 10 steps, each moving an entry by about lr 1e-3
+    reach = 2 * 2 * 10 * 1e-3
+    for r, g in enumerate(got):
+        rgap, rwhere = report_gap(rep, g["rep"])
+        fgap, beyond, _ = fog_gap(torch, fog, g["fog"])
+        print(f"  rank {r} ({g['backend']}): wall {g['wall_s']:.3f} s "
+              f"(unsharded {massive[2]:.3f} s), launches {g['launches']}, "
+              f"report gap {rgap:.3e} (first at {rwhere}), fog model gap "
+              f"{fgap:.3e}, entries beyond 1e-5 {beyond}; global-shape "
+              f"draws {g['drawn_bytes']['global']} bytes, "
+              f"{g['drawn_bytes']['kept']} of them kept")
+        if rwhere is not None and not rgap <= 1e-5:
+            raise AssertionError(f"gloo split rank {r}: report differs at "
+                                 f"{rwhere} by {rgap}")
+        if not fgap <= reach or any(
+                n > comms.split_budget(size) for n, size in beyond.values()):
+            raise AssertionError(f"gloo split rank {r}: fog model gap "
+                                 f"{fgap}, beyond 1e-5 {beyond}")
+    gap, _, at = fog_gap(torch, got[0]["fog"], got[1]["fog"])
+    if at is not None or got[0]["rep"] != got[1]["rep"]:
+        raise AssertionError(f"gloo split: the ranks differ at {at} ({gap})")
+    return {"seconds": secs,
+            "walls_s": [g["wall_s"] for g in got],
+            "unsharded_wall_s": massive[2],
+            "rank_launches": [g["launches"] for g in got],
+            "report_gap": max(report_gap(rep, g["rep"])[0] for g in got),
+            "fog_gap": max(fog_gap(torch, fog, g["fog"])[0] for g in got),
+            "drawn_bytes": [g["drawn_bytes"] for g in got]}
 
 
 def main() -> int:
@@ -2118,13 +2383,19 @@ def main() -> int:
         raise AssertionError(f"device histories {n_hist} != 4 x 10")
 
     phase("phase 9: massive main path (scenario='massive', D=256, 2 rounds)")
+    # the first run of each path phase 20 holds its sharded runs to
+    first = {}
     reset()
     t0 = time.perf_counter()
-    rounds = fed.run_experiment(scenario="massive", num_devices=256,
-                                rounds=2)[0]["rounds"]
+    with FogModels(fed) as fog:
+        rep = fed.run_experiment(scenario="massive", num_devices=256,
+                                 rounds=2)[0]
     torch.cuda.synchronize()
     massive_s = time.perf_counter() - t0
     massive_launches = read()
+    first["massive"] = (rep, fog.models[-1], massive_s, massive_launches)
+    rounds = rep["rounds"]
+    del fog
     accs = [r["aggregated_acc"] for r in rounds]
     print(f"  aggregated_acc per round {accs} wall {massive_s:.3f} s "
           f"launches {massive_launches}")
@@ -2172,11 +2443,20 @@ def main() -> int:
     async_resume = check_async_resume(torch, fed, interop, lenet)
     torch.cuda.empty_cache()
     phase("phase 17: async path (scenario='async', D=256, 8 events)")
-    async_path = run_async_path(torch, fed, reset, read)
+    async_path = run_async_path(torch, fed, reset, read, first)
     torch.cuda.empty_cache()
     phase("phase 19: fog path (scenario='fog', D=256, G=16, 4 rounds), and "
           "with an int8 fog codec")
-    fog_path = run_fog_path(torch, fed, comms, lenet, k2, reset, read)
+    fog_path = run_fog_path(torch, fed, comms, lenet, k2, reset, read,
+                            first)
+    torch.cuda.empty_cache()
+    phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
+          "async), then massive split over two processes on gloo")
+    sharded = run_sharded_paths(torch, fed, reset, read, first)
+    torch.cuda.empty_cache()
+    sharded["gloo split"] = run_gloo_split(torch, first["massive"])
+    del first
+    torch.cuda.empty_cache()
 
     phase("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
@@ -2213,10 +2493,15 @@ def main() -> int:
             scenario="fog", num_devices=256, rounds=4)))
     path_profiles = {}
     for name, fn in profiled:
-        wall, busy, top = profile_path(torch, fn)
-        path_profiles[name] = {"wall_s": wall, "busy_s": busy}
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, _, top, read_s = trace_path(torch, fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path_profiles[name] = {"wall_s": wall, "busy_s": busy,
+                               "trace_read_s": read_s, "peak_gib": peak}
         print(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
-              f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}")
+              f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}; "
+              f"trace read in {read_s:.3f} s; peak device memory "
+              f"{peak:.2f} GiB")
         torch.cuda.empty_cache()
     int8 = comms.CommsConfig(compression="int8")
     codec_profiles = {}
@@ -2226,20 +2511,27 @@ def main() -> int:
             ("B int8", lambda: fed.run_experiment(
                 configs["B"], scenario="lm", rounds=2, n_test=256,
                 comms=int8))):
-        wall, busy, codec, top = profile_codec_path(torch, fn, CODEC_SPAN)
+        wall, busy, (codec, spanned), top, read_s = trace_path(
+            torch, fn, CODEC_SPAN)
         codec_profiles[name] = {"wall_s": wall, "busy_s": busy,
-                                "codec_device_ms": codec}
+                                "codec_device_ms": codec,
+                                "codec_span_device_ms": spanned,
+                                "trace_read_s": read_s}
         print(f"  {name} (host and device activity): wall {wall:.3f} s, "
               f"device busy {busy:.3f} s (idle share "
               f"{1.0 - busy / wall:.3f}); codec ({CODEC_SPAN} spans) "
-              f"{codec:.3f} ms of device time; top kernels {top}")
+              f"{codec:.3f} ms of kernel time, the spans {spanned:.3f} ms "
+              f"of the device timeline; top kernels {top}; trace read in "
+              f"{read_s:.3f} s")
         torch.cuda.empty_cache()
 
     all_launches = [paper_launches, massive_launches, *lm_launches.values(),
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
                     hetero[1], churn[1], async_path[1],
-                    *(v["launches"] for v in fog_path.values())]
+                    *(v["launches"] for v in fog_path.values()),
+                    *(run for v in sharded.values()
+                      for run in v.get("launches", {}).values())]
     for entry in (k1_entry, k2_entry, k3_entry, k4_entry):
         entry["launches"] = sum(run[entry["name"]] for run in all_launches)
     # of K2's launches on the paths, those in segment form (phase 19)
@@ -2263,6 +2555,7 @@ def main() -> int:
                                 "launches": async_path[1],
                                 "telemetry": async_path[2]},
                       "async_resume": async_resume, "fog": fog_path,
+                      "sharded": sharded,
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

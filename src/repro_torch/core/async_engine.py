@@ -40,6 +40,13 @@ a ``[G, ...]`` stack of fog models: arrivals fold into their own group
 (the kernel's segment form) and every ``local_steps``-th event collapses
 the tier.  Live traffic (``stream=``, ``fleet=``) raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+Under a mesh (``EdgeEngine(mesh=...)``) the event queue stays host numpy
+and is the same on every rank: each computes the completion times,
+dispatch and clock from the whole fleet's draws and gathered ``[D]``
+vectors.  A rank runs the candidate round on its rows (draws at the global
+shape, ``launch.sharding.rand_rows``), and each accepting event's reduce
+sums the ranks' partial reduces, so every rank holds the same fog model.
 """
 from __future__ import annotations
 
@@ -56,8 +63,8 @@ from repro_torch.core import faults as faults_mod
 from repro_torch.core import hetero as hetero_mod
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.engine import (_UNPORTED_FUSED, CODEC_SPAN,
-                                     EngineState, _reduce, _rows,
-                                     _where_rows, copy_generator,
+                                     EngineState, _on_fleet, _reduce, _rows,
+                                     _slot0, _where_rows, copy_generator,
                                      reject_unported)
 from repro_torch.core.hetero import DECAYS
 from repro_torch.core.model_adapter import excluded_paths
@@ -235,6 +242,7 @@ def _event_uploads(codec, pending, residual, arrived, excl, generator, *,
     return rows, (scales or None)
 
 
+@_on_fleet
 def run_events_fused(engine, state: EngineState, events: int, *,
                      async_cfg: Optional[AsyncConfig] = None,
                      aggregation: str = "fedavg_n", comms=None,
@@ -329,6 +337,10 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     if guards is not None and guards.policy == "off":
         guards = None
     D, dev, trainer = engine.num_devices, engine.device, engine.trainer
+    # [D] vectors are global on every rank; [D, ...] trees hold the rank's
+    # rows (``loc`` slices, ``gather`` assembles)
+    fl = engine.fleet
+    loc, gather = fl.local, fl.gather
     if topology is not None:
         topology.validate_for(D)
     limits = (None if hetero is None else hetero_mod.device_step_limits(
@@ -347,8 +359,8 @@ def run_events_fused(engine, state: EngineState, events: int, *,
         # the cloud-side estimate between syncs: the slot-share mix
         share = torch.as_tensor(topology.group_sizes(), dtype=torch.float32,
                                 device=dev) / D
-    step_limit = None if limits is None else torch.as_tensor(limits,
-                                                             device=dev)
+    step_limit = None if limits is None else loc(torch.as_tensor(
+        limits, device=dev))
     codec = comms if comms is not None and comms.lossy else None
     guarded = faults is not None or guards is not None
     rates = faults_mod.rates_vector(faults)
@@ -369,7 +381,7 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     pending = state.pending if tree_leaves(state.pending) else zeros()
     live = None
     if faults is not None:
-        live = (state.live.detach().cpu().numpy().astype(np.float32)
+        live = (gather(state.live).detach().cpu().numpy().astype(np.float32)
                 if tree_leaves(state.live) else np.ones((D,), np.float32))
     staleness = np.zeros((D,), np.int32)
     dispatch = np.ones((D,), np.float32)
@@ -382,14 +394,17 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                                     state.pool, copy_generator(state.rng))
     excl = frozenset(excluded_paths(trainer.adapter, params))
     if topology is None:
-        fog = tree_map(lambda a: a[0], params)
+        # rows are identical by the dispatch protocol; the excluded leaves
+        # are global device 0's
+        first = _slot0(fl, params, excl)
+        fog = tree_map_with_path(
+            lambda path, a: first[path] if path in excl else a[0], params)
     else:
         # the [G, ...] fog stack: each group's first slot (rows within a
         # group are identical by the dispatch protocol); its excluded
         # leaves stay as they enter
-        first = torch.as_tensor(topo_mod.first_slots(topology), device=dev)
-        fog = {path: torch.index_select(leaf, 0, first)
-               for path, leaf in tree_items(params)}
+        fog = fl.rows_at(dict(tree_items(params)),
+                         topo_mod.first_slots(topology))
     recs: dict = {}       # device rows, one list a key
     host: dict = {}       # host rows, one list a key
     # a flat {path: leaf} dict → a tree shaped like the params
@@ -421,8 +436,9 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                                            faults_mod.draw_fault_masks(
                                                draws.u_faults, rates))
             crash = crash * live
-            labels = torch.where(to_dev(noise)[:, None] > 0,
-                                 to_dev(draws.noisy_labels), engine.labels)
+            labels = torch.where(loc(to_dev(noise))[:, None] > 0,
+                                 loc(to_dev(draws.noisy_labels)),
+                                 engine.labels)
         commit = dispatch if crash is None else dispatch * (1.0 - crash)
         lat = scale_latency(async_cfg, latency_draws(async_cfg, e_abs, D),
                             means)
@@ -442,6 +458,8 @@ def run_events_fused(engine, state: EngineState, events: int, *,
         recv = arrived if faults is None else arrived * (1.0 - drop)
         dispatch_d, commit_d, arrived_d, recv_d = to_dev(
             np.stack([dispatch, commit, arrived, recv]))
+        dispatch_l, commit_l, arrived_l = (loc(v) for v in (
+            dispatch_d, commit_d, arrived_d))
 
         # ---- 1. dispatch and the candidate round (masked commit): with a
         # topology each slot reads its own group's fog model
@@ -451,59 +469,61 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 params, fog)
         else:
             rows = dict(tree_items(topo_mod.take_group_rows(
-                {p: f for p, f in fog.items() if p not in excl}, gid)))
+                {p: f for p, f in fog.items() if p not in excl}, loc(gid))))
             incoming = tree_map_with_path(
                 lambda path, own: own if path in excl else rows[path], params)
             del rows
-        params = _where_rows(dispatch_d, incoming, params)
-        opt_state = _where_rows(dispatch_d, trainer.opt.init(params),
+        params = _where_rows(dispatch_l, incoming, params)
+        opt_state = _where_rows(dispatch_l, trainer.opt.init(params),
                                 opt_state)
         base = params
         p2, o2, pool2, _ = engine._round(params, opt_state, pool, gen,
                                          record_curves=False, labels=labels,
                                          step_limit=step_limit)
         # a crashed device loses the round: nothing commits
-        params = _where_rows(commit_d, p2, params)
-        opt_state = _where_rows(commit_d, o2, opt_state)
-        pool = vpool.VPool(*_where_rows(commit_d, tuple(pool2), tuple(pool)))
+        params = _where_rows(commit_l, p2, params)
+        opt_state = _where_rows(commit_l, o2, opt_state)
+        pool = vpool.VPool(*_where_rows(commit_l, tuple(pool2), tuple(pool)))
         del p2, o2, pool2, incoming
 
         with torch.no_grad():
             banked = tree_map_with_path(
                 lambda path, p, b: (torch.zeros_like(p) if path in excl
                                     else p - b), params, base)
-            pending = _where_rows(commit_d, banked, pending)
+            pending = _where_rows(commit_l, banked, pending)
             del banked, base
 
             # ---- 3. staleness-decayed Eq. 1 over the arrivals
-            counts = vpool.n_labeled(pool).float()
-            accs = (agg_mod.stacked_accuracy(
+            counts = gather(vpool.n_labeled(pool).float())
+            accs = (gather(agg_mod.stacked_accuracy(
                 trainer.eval_logits, params, engine.test_images,
-                engine.test_labels) if has_val else torch.zeros_like(counts))
+                engine.test_labels)) if has_val
+                else torch.zeros_like(counts))
             raw = {"average": torch.ones_like(counts), "weighted": accs,
                    "fedavg_n": counts}[aggregation]
             # without faults or guards the reduce takes the codec's wire
             # payload leaf by leaf; the guards judge whole decoded uploads
             sent, scales = _event_uploads(
-                codec, pending, residual, arrived_d, excl,
+                codec, pending, residual, arrived_l, excl,
                 engine.comms_generator(e_abs), wire=not guarded)
             if faults is not None:
                 # wire corruption of received uploads, after the residual
                 sent = faults_mod.corrupt_stacked(
-                    faults.corrupt_mode, sent, to_dev(corrupt * recv),
+                    faults.corrupt_mode, sent, loc(to_dev(corrupt * recv)),
                     rates[faults_mod.RATE_CORRUPT_SCALE])
             accept = recv_d
             if guards is not None:
-                norms = faults_mod.stacked_norms(sent)
+                norms = gather(faults_mod.stacked_norms(sent))
                 reject, clip, scale = faults_mod.guard_verdict(
-                    norms, faults_mod.stacked_finite(sent), recv_d,
+                    norms, gather(faults_mod.stacked_finite(sent)), recv_d,
                     policy=guards.policy, factor=guards.norm_factor,
                     group_ids=None if topology is None else gid,
                     num_groups=None if topology is None else G)
                 accept = recv_d * (1.0 - reject)
                 if guards.policy == "clip":
-                    sent = tree_map(lambda a: a * _rows(scale, a), sent)
-                sent = _where_rows(accept, sent,
+                    scale_l = loc(scale)
+                    sent = tree_map(lambda a: a * _rows(scale_l, a), sent)
+                sent = _where_rows(loc(accept), sent,
                                    tree_map(torch.zeros_like, sent))
                 row.update(rejected=reject, clipped=clip,
                            upload_norms=norms, accepted=accept)
@@ -527,7 +547,7 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 # the flat Eq. 1 update (a sync event collapses the tier:
                 # the β-mixed fog base plus the flat arrivals, β ≡ 1.0 at
                 # G = 1 so the flat update bit for bit)
-                delta = _reduce(sent, w, **red)
+                delta = _reduce(fl, sent, w, **red)
                 if topology is None:
                     fog = tree_map_with_path(
                         lambda path, f: (f if path in excl
@@ -543,7 +563,7 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                 # a fog-local event: each accepted delta folds into its own
                 # group with per-group alphas; a silent group keeps its
                 # model (the where drops its uniform fallback)
-                fold = _reduce(sent, alpha, segments=(gid, G), **red)
+                fold = _reduce(fl, sent, alpha, segments=(gid, G), **red)
                 fog.update({p: torch.where(
                     _rows(group_any, fog[p]), fog[p] + eta * fold[p], fog[p])
                     for p in fold})
@@ -559,7 +579,7 @@ def run_events_fused(engine, state: EngineState, events: int, *,
             # are dispatched next; live devices in flight age one model
             # version when something was accepted
             pending = tree_map(
-                lambda p: torch.where(_rows(arrived_d, p) > 0, 0.0, p),
+                lambda p: torch.where(_rows(arrived_l, p) > 0, 0.0, p),
                 pending)
             row.update(weights=w, upload_mask=arrived_d, n_labeled=counts)
             hrow.update(staleness=staleness, sim_time=t_event,
@@ -608,7 +628,8 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     final = EngineState(
         params, opt_state, pool, engine.device_generator(start_event + events),
         () if residual is None else residual,
-        pending, to_dev(staleness), () if live is None else to_dev(live))
+        pending, loc(to_dev(staleness)),
+        () if live is None else loc(to_dev(live)))
     return final, out, fog
 
 

@@ -43,6 +43,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.launch.sharding import rand_rows
 from repro_torch.tree import tree_leaves, tree_map
 
 COMPRESSIONS = ("none", "int8", "topk")
@@ -241,10 +242,11 @@ def encode_rows(cfg: CommsConfig, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
     """One stacked leaf ``x [D, ...]`` (one upload a row) as it crosses the
     wire: ``(payload, scales)``.  ``int8``: codes and float32 scales
-    ``[D]``, from uniforms drawn from ``generator``.  Otherwise the values
+    ``[D]``, from uniforms drawn from ``generator`` (at the global shape
+    in a sharded fleet, ``launch.sharding.rand_rows``).  Otherwise the values
     (top-k masked for ``topk``) at the wire dtype, and ``scales`` None."""
     if cfg.compression == "int8":
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        u = rand_rows(x.shape, generator=generator, device=x.device)
         return quantize_int8_rows(x, u)
     if cfg.compression == "topk":
         k = topk_k(_rows(x).shape[1], cfg.topk_fraction)

@@ -36,6 +36,23 @@ sync to a global model every ``local_steps``-th round.  The fleet option
 raises ``NotImplementedError`` naming its ROADMAP item.  ``run_async``
 drops the round barrier (``core.async_engine``).
 
+``EdgeEngine(mesh=...)`` splits the device axis over a ``torch.distributed``
+group (``launch.mesh``), one process a shard: every rank calls the same
+methods with the same arguments, holds the rows ``launch.sharding
+.FleetShard`` gives it of every ``[D, ...]`` tree, and runs the kernels on
+those rows.  Fleet-wide ``[D]`` vectors (Eq. 1 weights, the topology's
+α/β, guard verdicts, staleness, liveness, the records) are computed on
+every rank from gathered vectors, and each Eq. 1 reduce is the rank's
+partial reduce of its rows by its slice of the global weights, summed over
+the ranks; so every rank holds the same fog model and the same records,
+gathered to ``[D, ...]``.  Where the reference differs on purpose: every
+draw inside a round is made at the GLOBAL shape from the one generator and
+sliced (``launch.sharding.rand_rows``), so a sharded run draws what the
+unsharded one does; rows at global slots (slot 0's excluded leaves, each
+fog group's first slot) are broadcast by their owner, where the reference
+weights a one-hot row and psums; and the model ``init_state`` /
+``set_params`` take is rank 0's, broadcast.
+
 Samples keep their dtype and rank end to end: float32 images ``[28, 28,
 1]`` for LeNet, int32 token sequences ``[S]`` for the LM adapters.
 
@@ -57,6 +74,7 @@ the card and the CPU see the same masks.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -72,6 +90,8 @@ from repro_torch.core import topology as topo_mod
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
 from repro_torch.kernels.acquisition_scores import acquisition_scores
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import DEVICE_AXIS
 from repro_torch.tree import (tree_items, tree_leaves, tree_map,
                               tree_map_with_path)
 
@@ -121,15 +141,18 @@ class EngineState(NamedTuple):
     live: Any = ()        # [D] float32 or ()
 
 
-def stack_device_data(device_data: Sequence, device):
-    """Pad ragged device shards to a common length and stack.
+def stack_device_data(device_data: Sequence, device,
+                      n_pad: Optional[int] = None):
+    """Pad ragged device shards to a common length (``n_pad``, default
+    the longest) and stack.
 
     Returns ``(images [D, n_pad, ...], labels [D, n_pad] int64, valid [D,
     n_pad] bool)`` on ``device``; the images keep their dtype (float32
     pixels, int32 tokens).  Padding slots are invalid and are born
     "labeled" in the pool, so the window draw never selects them."""
     D = len(device_data)
-    n_pad = max(len(d) for d in device_data)
+    if n_pad is None:
+        n_pad = max(len(d) for d in device_data)
     img_shape = device_data[0].images.shape[1:]
     images = np.zeros((D, n_pad) + img_shape,
                       np.asarray(device_data[0].images).dtype)
@@ -157,15 +180,25 @@ def broadcast_params(params0, D: int):
                     params0)
 
 
-def _aggregate_shared(params, w, excl):
+def _slot0(fleet, params, excl) -> Dict[str, torch.Tensor]:
+    """Global device 0's row of each excluded leaf (on every rank)."""
+    rows = fleet.rows_at({path: leaf for path, leaf in tree_items(params)
+                          if path in excl}, [0])
+    return {path: row[0] for path, row in rows.items()}
+
+
+def _aggregate_shared(fleet, params, w, excl):
     """Eq. 1 over the leaves outside ``excl`` (through the fused-aggregation
-    kernel); the excluded leaves, which carry no Eq. 1 mass, take device
-    0's row."""
+    kernel, each rank's rows by its slice of ``w [D]``, summed over the
+    ranks); the excluded leaves, which carry no Eq. 1 mass, take global
+    device 0's row."""
     flat = {path: leaf for path, leaf in tree_items(params)
             if path not in excl}
-    reduced = agg_mod.aggregate_stacked(flat, w) if flat else {}
+    reduced = _reduce(fleet, flat, w)
+    first = _slot0(fleet, params, excl)
     return tree_map_with_path(
-        lambda path, leaf: leaf[0] if path in excl else reduced[path], params)
+        lambda path, leaf: first[path] if path in excl else reduced[path],
+        params)
 
 
 def score_logprobs(name: str, logp: torch.Tensor) -> torch.Tensor:
@@ -247,7 +280,8 @@ def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
     leaves report device 0's value."""
     payload, scales = _encode_uploads(cfg, params, params_prev, residual,
                                       upload, excl, generator, pending)
-    reduced = _reduce(payload, w, scales, out_dtype=torch.float32)
+    reduced = _reduce(sharding.FleetShard(None, w.shape[0]), payload, w,
+                      scales, out_dtype=torch.float32)
     del payload
     prev = dict(tree_items(params_prev))
     return tree_map_with_path(
@@ -255,17 +289,19 @@ def _delta_aggregate(cfg, params, params_prev, residual, w, upload, excl,
                             else prev[path][0] + reduced[path]), params)
 
 
-def _reduce(rows, w, scales=None, *, segments=None, out_dtype=None):
-    """Eq. 1 of the upload ``rows`` (a dict of ``[D, ...]`` payloads, int8
-    codes with ``scales``) by ``w [D]`` through the fused-aggregation
-    kernel: flat, or per fog group with ``segments = (ids [D] int64, G)``
-    (``[G, ...]`` leaves)."""
+def _reduce(fleet, rows, w, scales=None, *, segments=None, out_dtype=None):
+    """Eq. 1 of the upload ``rows`` (a dict of ``[D_local, ...]``
+    payloads, int8 codes with ``scales``) by the global ``w [D]`` through
+    the fused-aggregation kernel: flat, or per fog group with ``segments =
+    (ids [D] int64, G)`` (``[G, ...]`` leaves).  Under a mesh each rank
+    reduces its rows by its slice of ``w`` (and of the ids), and the
+    partial sums are summed over the ranks."""
     if not rows:
         return {}
-    seg = {} if segments is None else dict(segment_ids=segments[0],
-                                           num_segments=segments[1])
-    return agg_mod.aggregate_stacked(rows, w, scales=scales,
-                                     out_dtype=out_dtype, **seg)
+    seg = {} if segments is None else dict(
+        segment_ids=fleet.local(segments[0]), num_segments=segments[1])
+    return fleet.psum(agg_mod.aggregate_stacked(
+        rows, fleet.local(w), scales=scales, out_dtype=out_dtype, **seg))
 
 
 def fog_uniforms(seed: int, round_idx: int, group: int, shapes,
@@ -335,21 +371,52 @@ def _upload_rows(cfg, params, params_prev, residual, upload, excl,
     return sent
 
 
+def _on_fleet(method):
+    """Run an engine call with its fleet-stacked draws at the global
+    shape of the engine's fleet (``launch.sharding.fleet_draws``)."""
+    @functools.wraps(method)
+    def call(engine, *args, **kwargs):
+        with sharding.fleet_draws(engine.fleet):
+            return method(engine, *args, **kwargs)
+    return call
+
+
 class EdgeEngine:
-    """Vectorized round executor over a fixed device fleet."""
+    """Vectorized round executor over a fixed device fleet.
+
+    ``mesh`` (``launch.mesh.make_device_mesh`` / ``make_fog_mesh``) splits
+    the fleet over the ranks of its process group: ``num_devices`` stays
+    the global D, D must divide over the mesh, and the engine stacks only
+    this rank's rows of ``device_data`` (every rank passes all of it).
+    States the engine makes and returns hold this rank's rows;
+    ``gather_state`` assembles the unsharded layout (for reports and
+    checkpoints) and ``resume_state`` shards a global one."""
 
     def __init__(self, trainer, cfg, device_data: Sequence, seed_data,
                  test_set=None, *, total_acquisitions: Optional[int] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.device = resolve_device(device)
         if trainer.device != self.device:
             raise ValueError(f"trainer on {trainer.device}, engine on "
                              f"{self.device}")
         self.trainer = trainer
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if DEVICE_AXIS not in mesh.axis_names:
+                raise ValueError(
+                    f"mesh must carry a {DEVICE_AXIS!r} axis "
+                    f"(launch.mesh.make_device_mesh / make_fog_mesh); "
+                    f"got {mesh.axis_names}")
+            if mesh.device != self.device:
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}")
         self.num_devices = len(device_data)
+        # raises on every rank alike when D does not divide over the mesh
+        self.fleet = sharding.FleetShard(mesh, self.num_devices)
         self.images, self.labels, self.valid = stack_device_data(
-            device_data, self.device)
+            device_data[self.fleet.start:self.fleet.stop], self.device,
+            n_pad=max(len(d) for d in device_data))
         n_pad = self.images.shape[1]
         self.window = min(cfg.pool_window, n_pad)
         self.k = min(cfg.k_per_acquisition, self.window)
@@ -376,9 +443,14 @@ class EdgeEngine:
         return torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + 7919 + 104729 * round_idx)
 
+    def _dispatch(self, params0):
+        """One model → this rank's ``[D_local, ...]`` rows of it (rank 0's
+        model under a mesh, so the ranks cannot start apart)."""
+        return broadcast_params(self.fleet.broadcast_tree(params0),
+                                self.fleet.local_rows)
+
     def init_state(self, params0, *, round_idx: int = 0) -> EngineState:
-        D = self.num_devices
-        params = broadcast_params(params0, D)
+        params = self._dispatch(params0)
         return EngineState(params, self.trainer.opt.init(params),
                            vpool.vpool_init(self.valid, self.capacity),
                            self.device_generator(round_idx))
@@ -387,7 +459,7 @@ class EdgeEngine:
                    round_idx: int = 0) -> EngineState:
         """Re-dispatch an aggregated model to the fleet (pools and the
         extension buffers persist, optimizer state and generator reset)."""
-        params = broadcast_params(params0, self.num_devices)
+        params = self._dispatch(params0)
         return state._replace(params=params,
                               opt_state=self.trainer.opt.init(params),
                               rng=self.device_generator(round_idx))
@@ -396,10 +468,23 @@ class EdgeEngine:
                      next_round: int) -> EngineState:
         """Ready a restored checkpoint for continuation: install the
         generator the uninterrupted run would draw from in round
-        ``next_round`` (= rounds completed so far), and nothing else.  Pass
-        the same value as ``start_round`` on the continuation call; the
-        resumed run then equals the uninterrupted one."""
+        ``next_round`` (= rounds completed so far) and, under a mesh, take
+        a global state (a checkpoint's) to this rank's rows.  Pass the
+        same value as ``start_round`` on the continuation call; the resumed
+        run then equals the uninterrupted one."""
+        if (self.fleet.sharded and int(state.pool.n_filled.shape[0])
+                == self.num_devices):
+            state = sharding.shard_engine_state(self.mesh, state)
         return state._replace(rng=self.device_generator(next_round))
+
+    def gather_state(self, state: EngineState) -> EngineState:
+        """The unsharded layout of a sharded state, on every rank (a
+        collective; the identity off-mesh).  Save a sharded run with
+        ``save_engine_state(path, engine.gather_state(state))`` (the bytes
+        are the unsharded run's) and resume it with ``resume_state``."""
+        if self.mesh is None:
+            return state
+        return sharding.gather_engine_state(self.mesh, state)
 
     def comms_generator(self, round_idx: int = 0) -> torch.Generator:
         """The generator the int8 codec of round ``round_idx`` (absolute
@@ -408,16 +493,20 @@ class EdgeEngine:
             self.cfg.seed + 0x636F6D + 104729 * round_idx)
 
     def device_params_list(self, state: EngineState) -> List:
-        return agg_mod.unstack_models(state.params)
+        """Every device's model (all D of them, on every rank)."""
+        return agg_mod.unstack_models(tree_map(self.fleet.gather,
+                                               state.params))
 
     def labeled_counts(self, state: EngineState) -> List[int]:
         """Per-device labeled-sample counts n_i (the fedavg_n weights)."""
-        return [int(n) for n in vpool.n_labeled(state.pool).tolist()]
+        return [int(n) for n in self.fleet.gather(
+            vpool.n_labeled(state.pool)).tolist()]
 
     def _check_capacity(self, state: EngineState, *, rounds: int = 1):
         """A round appends R·k slots per device; the slot write clamps past
-        capacity (as ``dynamic_update_slice`` does), so fail loudly."""
-        need = int(state.pool.n_filled.max()) \
+        capacity (as ``dynamic_update_slice`` does), so fail loudly (on
+        every rank: the fill is the whole fleet's)."""
+        need = int(self.fleet.gather(state.pool.n_filled).max()) \
             + rounds * self.cfg.acquisitions * self.k
         if need > self.capacity:
             raise ValueError(
@@ -446,8 +535,8 @@ class EdgeEngine:
         rows = torch.arange(D, device=self.device)[:, None]
         win_idx, win_valid = vpool.draw_window(pool, gen, self.window)
         if self.cfg.acquisition_fn == "random":
-            scores = torch.rand(win_idx.shape, generator=gen,
-                                device=self.device)
+            scores = sharding.rand_rows(win_idx.shape, generator=gen,
+                                        device=self.device)
         else:
             scores = self._scores(params, images[rows, win_idx], gen)
         scores = torch.where(win_valid, scores,
@@ -491,16 +580,19 @@ class EdgeEngine:
         return params, opt_state, pool, stacked
 
     # ------------------------------------------------------------ rounds
+    @_on_fleet
     def run_round(self, state: EngineState, *, record_curves: bool = True):
         """R acquisitions × D devices.  Returns ``(state, recs)`` with
-        ``recs`` ``[D, R, ...]``: ``n_labeled``, ``selected`` and (with a
-        test set and ``record_curves``) ``test_acc``."""
+        ``recs`` ``[D, R, ...]`` (gathered from every rank under a mesh):
+        ``n_labeled``, ``selected`` and (with a test set and
+        ``record_curves``) ``test_acc``."""
         record = record_curves and self.test_images is not None
         self._check_capacity(state)
         counters.count_dispatch()
         params, opt_state, pool, recs = self._round(
             state.params, state.opt_state, state.pool, state.rng,
             record_curves=record)
+        recs = {k: self.fleet.gather(v) for k, v in recs.items()}
         return state._replace(params=params, opt_state=opt_state,
                               pool=pool), recs
 
@@ -511,13 +603,15 @@ class EdgeEngine:
         the reference counts its per-device loop).  Every device draws
         from ``state.rng`` in turn, device 0's R acquisitions first, so
         the result equals ``run_round``'s on the RNG-free configuration
-        (dropout 0, the window covering the pool) and not otherwise."""
+        (dropout 0, the window covering the pool) and not otherwise.
+        Under a mesh each rank walks its own devices (its draws are then
+        not the unsharded loop's) and the records are gathered."""
         record = record_curves and self.test_images is not None
         self._check_capacity(state)
         R = self.cfg.acquisitions
         rows = lambda t, d: tree_map(lambda a: a[d:d + 1], t)
         carries, recs = [], []
-        for d in range(self.num_devices):
+        for d in range(self.fleet.local_rows):
             params, opt_state = rows(state.params, d), rows(state.opt_state, d)
             pool = vpool.VPool(*(f[d:d + 1] for f in state.pool))
             dev_recs = []
@@ -534,10 +628,12 @@ class EdgeEngine:
         params = tree_map(cat, *[c[0] for c in carries])
         opt_state = tree_map(cat, *[c[1] for c in carries])
         pool = vpool.VPool(*map(cat, *[c[2] for c in carries]))
-        recs = {k: torch.cat([r[k] for r in recs]) for k in recs[0]}
+        recs = {k: self.fleet.gather(torch.cat([r[k] for r in recs]))
+                for k in recs[0]}
         return state._replace(params=params, opt_state=opt_state,
                               pool=pool), recs
 
+    @_on_fleet
     def run_rounds_fused(self, state: EngineState, rounds: int, *,
                          upload_mask=None, upload_fraction: float = 1.0,
                          aggregation: str = "fedavg_n", start_round: int = 0,
@@ -630,7 +726,13 @@ class EdgeEngine:
         ``aggregated_params`` is the last round's fog model (with a
         topology the slot-share mix of the fog models; its excluded leaves
         are device 0's).  The returned state carries the generator of
-        round ``start_round + rounds``."""
+        round ``start_round + rounds``.
+
+        Under a mesh (``EdgeEngine(mesh=...)``) the masks, draws and
+        schedules are the whole fleet's on every rank, the ``[D]`` vectors
+        are gathered, each reduce sums the ranks' partial reduces, and
+        every rank returns the same records and fog model; the state holds
+        the rank's rows."""
         reject_unported("run_rounds_fused", _UNPORTED_FUSED, fleet=fleet)
         if aggregation not in _AGGREGATIONS:
             raise ValueError(f"unknown aggregation {aggregation!r}: "
@@ -674,6 +776,10 @@ class EdgeEngine:
         self._check_capacity(state, rounds=rounds)
         D = self.num_devices
         dev = self.device
+        # [D] vectors are global on every rank; [D, ...] trees hold the
+        # rank's rows (``loc`` slices, ``gather`` assembles)
+        fl = self.fleet
+        loc, gather = fl.local, fl.gather
         limits = None
         if hetero is not None:
             limits = hetero_mod.device_step_limits(
@@ -691,7 +797,7 @@ class EdgeEngine:
             limits = topo_mod.topology_step_limits(
                 topology, D, self.cfg.train_steps_per_acq, base=limits)
         step_limit = (None if limits is None
-                      else torch.as_tensor(limits, device=dev))
+                      else loc(torch.as_tensor(limits, device=dev)))
         if upload_mask is not None:
             m = np.asarray(upload_mask, np.float32)
             if m.ndim == 1:
@@ -722,6 +828,9 @@ class EdgeEngine:
         # place, so never the caller's
         fresh = lambda buf, make: (tree_map(torch.clone, buf)
                                    if tree_leaves(buf) else make())
+        # the state's [D] vectors hold the rank's rows
+        fresh_vec = lambda buf, make: (gather(buf).clone()
+                                       if tree_leaves(buf) else make())
         codec = comms if comms is not None and comms.lossy else None
         residual = pending = staleness = live = None
         if codec is not None and codec.error_feedback:
@@ -732,11 +841,11 @@ class EdgeEngine:
             pending = fresh(state.pending,
                             lambda: tree_map(torch.zeros_like, state.params))
         if hetero is not None:
-            staleness = fresh(state.staleness, lambda: torch.zeros(
+            staleness = fresh_vec(state.staleness, lambda: torch.zeros(
                 (D,), dtype=torch.int32, device=dev))
         churn = live_mask is not None or faults is not None
         if churn:
-            live = fresh(state.live, lambda: torch.ones((D,), device=dev))
+            live = fresh_vec(state.live, lambda: torch.ones((D,), device=dev))
         guarded = faults is not None or guards is not None
         keeps_model = hetero is not None or churn or guards is not None
         rates = faults_mod.rates_vector(faults)
@@ -767,10 +876,9 @@ class EdgeEngine:
             # the [G, ...] fog models: each group's first slot (rows within
             # a group are identical by the dispatch protocol, which also
             # covers a call that starts between syncs)
-            first = torch.as_tensor(topo_mod.first_slots(topology),
-                                    device=dev)
-            fog = {path: torch.index_select(leaf, 0, first)
-                   for path, leaf in tree_items(params) if path not in excl}
+            fog = fl.rows_at({path: leaf for path, leaf in tree_items(params)
+                              if path not in excl},
+                             topo_mod.first_slots(topology))
         recs: Dict[str, list] = {}
         agg = None
         for t in range(rounds):
@@ -801,8 +909,8 @@ class EdgeEngine:
                 active = (1.0 - crash) if active is None \
                     else active * (1.0 - crash)
                 labels = torch.where(
-                    noise[:, None] > 0,
-                    torch.as_tensor(draws.noisy_labels, device=dev),
+                    loc(noise)[:, None] > 0,
+                    torch.as_tensor(loc(draws.noisy_labels), device=dev),
                     self.labels)
             params_prev = params
             params2, opt2, pool2, _ = self._round(
@@ -810,9 +918,10 @@ class EdgeEngine:
                 labels=labels, step_limit=step_limit)
             if active is not None:
                 # dead or crashed devices lose the round
-                params = _where_rows(active, params2, params)
-                opt_state = _where_rows(active, opt2, opt_state)
-                pool = vpool.VPool(*_where_rows(active, tuple(pool2),
+                active_l = loc(active)
+                params = _where_rows(active_l, params2, params)
+                opt_state = _where_rows(active_l, opt2, opt_state)
+                pool = vpool.VPool(*_where_rows(active_l, tuple(pool2),
                                                 tuple(pool)))
             else:
                 params, opt_state, pool = params2, opt2, pool2
@@ -821,11 +930,11 @@ class EdgeEngine:
             upload = mask if active is None else mask * active
             recv = upload if faults is None else upload * (1.0 - drop)
 
-            counts = vpool.n_labeled(pool).float()
-            accs = (agg_mod.stacked_accuracy(trainer.eval_logits, params,
-                                             self.test_images,
-                                             self.test_labels)
-                    if has_val else torch.zeros_like(counts))
+            counts = gather(vpool.n_labeled(pool).float())
+            accs = (gather(agg_mod.stacked_accuracy(
+                trainer.eval_logits, params, self.test_images,
+                self.test_labels)) if has_val else torch.zeros_like(counts))
+            upload_l = loc(upload)
             if aggregation == "average":
                 raw = torch.ones_like(counts)
             elif aggregation == "weighted":
@@ -844,15 +953,15 @@ class EdgeEngine:
                     # the guards judge whole uploads: build every leaf's
                     # received rows before any weight exists
                     sent = _upload_rows(
-                        codec, params, params_prev, residual, upload, excl,
+                        codec, params, params_prev, residual, upload_l, excl,
                         self.comms_generator(r_abs), pending)
                     if faults is not None:
                         sent = faults_mod.corrupt_stacked(
-                            faults.corrupt_mode, sent, corrupt * recv,
+                            faults.corrupt_mode, sent, loc(corrupt * recv),
                             rates[faults_mod.RATE_CORRUPT_SCALE])
                 elif codec is not None:
                     sent, scales = _encode_uploads(
-                        codec, params, params_prev, residual, upload, excl,
+                        codec, params, params_prev, residual, upload_l, excl,
                         self.comms_generator(r_abs), pending)
                 # the wire payload (bfloat16 values, int8 codes) reduces to
                 # float32; decoded rows keep their dtype
@@ -860,16 +969,17 @@ class EdgeEngine:
                     None if rows_form else torch.float32))
                 accept = recv
                 if guards is not None:
-                    norms = faults_mod.stacked_norms(sent)
+                    norms = gather(faults_mod.stacked_norms(sent))
                     reject, clip, scale = faults_mod.guard_verdict(
-                        norms, faults_mod.stacked_finite(sent), recv,
+                        norms, gather(faults_mod.stacked_finite(sent)), recv,
                         policy=guards.policy, factor=guards.norm_factor,
                         group_ids=None if topology is None else gid,
                         num_groups=None if topology is None else G)
                     accept = recv * (1.0 - reject)
                     if guards.policy == "clip":
-                        sent = tree_map(lambda a: a * _rows(scale, a), sent)
-                    sent = _where_rows(accept, sent,
+                        scale_l = loc(scale)
+                        sent = tree_map(lambda a: a * _rows(scale_l, a), sent)
+                    sent = _where_rows(loc(accept), sent,
                                        tree_map(torch.zeros_like, sent))
                     row.update(rejected=reject, clipped=clip,
                                upload_norms=norms, accepted=accept)
@@ -907,8 +1017,8 @@ class EdgeEngine:
                     else:
                         base = topo_mod.group_reduce_stacked(fog, beta)
                         if fog_codec is not None or not sync:
-                            fog_delta = _reduce(sent, alpha, segments=segments,
-                                                **red)
+                            fog_delta = _reduce(fl, sent, alpha,
+                                                segments=segments, **red)
                             fog_cand = {path: fog[path] + fog_delta[path]
                                         for path in fog}
                     if fog_codec is not None:
@@ -919,23 +1029,24 @@ class EdgeEngine:
                                        r_abs), beta)
                         del fog_delta
                     else:
-                        reduced = _reduce(sent, w, **red)
+                        reduced = _reduce(fl, sent, w, **red)
                     del sent
+                    first = _slot0(fl, params, excl)
                     agg = tree_map_with_path(
                         lambda path, leaf: (
-                            leaf[0] if path in excl
+                            first[path] if path in excl
                             else base[path] + reduced[path]), params)
                     del reduced, base
                 else:
                     # direct Eq. 1, plus Σ w_i · pending_i for buffering
                     # hetero: equal to the delta form since Σw = 1, and
                     # the synchronous round itself when nothing is pending
-                    agg = _aggregate_shared(params, w, excl)
+                    agg = _aggregate_shared(fl, params, w, excl)
                     held = None
                     if pending is not None:
                         held = {path: leaf for path, leaf
                                 in tree_items(pending) if path not in excl}
-                        late = _reduce(held, w)
+                        late = _reduce(fl, held, w)
                         agg = tree_map_with_path(
                             lambda path, leaf: (leaf if path in excl
                                                 else leaf + late[path]), agg)
@@ -944,9 +1055,10 @@ class EdgeEngine:
                         # each fog group's own Eq. 1 (a fog-local round)
                         shared = {path: leaf for path, leaf
                                   in tree_items(params) if path not in excl}
-                        fog_cand = _reduce(shared, alpha, segments=segments)
+                        fog_cand = _reduce(fl, shared, alpha,
+                                           segments=segments)
                         if held is not None:
-                            late = _reduce(held, alpha, segments=segments)
+                            late = _reduce(fl, held, alpha, segments=segments)
                             fog_cand = {path: fog_cand[path] + late[path]
                                         for path in fog_cand}
                             del late
@@ -956,12 +1068,13 @@ class EdgeEngine:
                         for path, leaf in tree_items(params):
                             if path in held:
                                 _backlog(leaf, prev[path], held[path],
-                                         _rows(upload, leaf) > 0)
+                                         _rows(upload_l, leaf) > 0)
                 if keeps_model and not accept_any:
                     # the fog node re-dispatches its previous model
+                    first = _slot0(fl, params, excl)
                     agg = tree_map_with_path(
                         lambda path, leaf: (
-                            leaf[0] if path in excl
+                            first[path] if path in excl
                             else (prev[path][0] if topology is None
                                   else fog[path][0])), params)
                 if topology is not None:
@@ -1002,8 +1115,8 @@ class EdgeEngine:
             # keep each device's own trained value; with a topology each
             # slot reads its own group's fog model
             dispatched = dict(tree_items(
-                broadcast_params(agg, D) if topology is None
-                else topo_mod.take_group_rows(fog, gid)))
+                broadcast_params(agg, fl.local_rows) if topology is None
+                else topo_mod.take_group_rows(fog, loc(gid))))
             params = tree_map_with_path(
                 lambda path, trained: (trained if path in excl
                                        else dispatched[path]), params)
@@ -1017,16 +1130,18 @@ class EdgeEngine:
             share = torch.as_tensor(topology.group_sizes(),
                                     dtype=torch.float32, device=dev) / D
             mixed = topo_mod.group_reduce_stacked(fog, share)
+            first = _slot0(fl, params, excl)
             agg = tree_map_with_path(
-                lambda path, leaf: leaf[0] if path in excl else mixed[path],
-                params)
+                lambda path, leaf: first[path] if path in excl
+                else mixed[path], params)
         # the generator the next round draws from, as resume_state installs
         # it: a chained call then equals the uninterrupted run
         none = lambda b: () if b is None else b
+        rows = lambda v: () if v is None else loc(v)
         return (EngineState(params, opt_state, pool,
                             self.device_generator(start_round + rounds),
-                            none(residual), none(pending), none(staleness),
-                            none(live)),
+                            none(residual), none(pending), rows(staleness),
+                            rows(live)),
                 out, agg)
 
     def run_async(self, state: EngineState, events: int, *, async_cfg=None,

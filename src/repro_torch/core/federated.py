@@ -349,7 +349,6 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
 
 # options of the reference's round functions that later slices port
 _UNPORTED_OPTIONS = {
-    "mesh": "Queue 1 item 13 (fog topology and sharding)",
     "stream": "Queue 1 item 14 (streaming and scenarios)",
     "fleet": "Queue 1 item 14 (streaming and scenarios)",
 }
@@ -568,10 +567,19 @@ def run_federated_rounds(cfg: FederatedALConfig,
     two-tier hierarchy; each report adds ``fog_sync``, ``beta`` and
     ``group_accept`` and a ``"tiers"`` entry (``comms.tier_report``: the
     edge→fog and fog→cloud bytes of the round).  The async engine's
-    ``[G, ...]`` fog stack is returned as its slot-share mix."""
+    ``[G, ...]`` fog stack is returned as its slot-share mix.
+
+    ``mesh`` (``launch.mesh.make_device_mesh`` / ``make_fog_mesh``) splits
+    the fleet of the ``vmap``, ``legacy``, ``fused`` and ``async``
+    engines over the ranks of its process group (``EdgeEngine(mesh=)``):
+    every rank calls this with the same arguments and gets the same model
+    and reports.  The host-aggregation engines gather every device's model
+    to each rank; under ``legacy`` each rank walks its own devices.  The
+    ``classic`` engine does not read ``mesh``: every rank runs the whole
+    fleet."""
     _check_engine(engine, ("vmap", "legacy", "classic", "fused", "async"))
     _check_comms_engine(comms, "fused" if engine == "async" else engine)
-    reject_unported("run_federated_rounds", _UNPORTED_OPTIONS, mesh=mesh,
+    reject_unported("run_federated_rounds", _UNPORTED_OPTIONS,
                     stream=stream, fleet=fleet)
     _check_async_engine(async_cfg, engine, hetero)
     _check_hetero_engine(hetero, engine)
@@ -602,7 +610,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
     if engine in ("fused", "async"):
         eng = EdgeEngine(trainer, cfg, device_data, seed_data, test_set,
                          total_acquisitions=cfg.acquisitions * rounds,
-                         device=device)
+                         device=device, mesh=mesh)
         if engine == "async":
             _, recs, params = eng.run_async(
                 eng.init_state(params), rounds,
@@ -693,7 +701,7 @@ def run_federated_rounds(cfg: FederatedALConfig,
     # reports carry aggregate metrics only, so the rounds record no curves
     eng = EdgeEngine(trainer, cfg, device_data, seed_data,
                      total_acquisitions=cfg.acquisitions * rounds,
-                     device=device)
+                     device=device, mesh=mesh)
     run = eng.run_round if engine == "vmap" else eng.run_round_legacy
     state = eng.init_state(params)
     for t in range(rounds):
@@ -905,13 +913,16 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     ``"tiers"`` summary (``comms.tier_telemetry``: per-tier bytes and
     ``cross_tier_reduction``).  An explicit ``hetero=`` / ``async_cfg=`` /
     ``faults=`` / ``guards=`` / ``topology=`` wins over the scenario's
-    default."""
+    default.  ``mesh`` (``launch.mesh``) splits the fleet over the ranks
+    of a process group, every rank calling with the same arguments; a
+    meshed run takes the multi-round drivers (``run_federated_rounds``),
+    as the reference's does."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import (dirichlet_split,
                                                   federated_split)
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
-    reject_unported("run_experiment", _UNPORTED_OPTIONS, mesh=mesh,
+    reject_unported("run_experiment", _UNPORTED_OPTIONS,
                     stream=stream, fleet=fleet)
     if scenario is not None:
         if scenario in _UNPORTED_SCENARIOS:
@@ -968,10 +979,10 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
             else:
                 shards = federated_split(full, cfg.num_devices, seed=seed)
         cfg_rep = replace(cfg, seed=seed)
-        if engine in ("fused", "async") or rounds > 1:
+        if engine in ("fused", "async") or rounds > 1 or mesh is not None:
             _, round_reports = run_federated_rounds(
                 cfg_rep, shards, seed_set, test, rounds=rounds,
-                engine=engine, comms=comms, hetero=hetero,
+                engine=engine, mesh=mesh, comms=comms, hetero=hetero,
                 async_cfg=async_cfg, faults=faults, guards=guards,
                 topology=topology, device=device)
             rep_report = {

@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.launch.sharding import rand_rows
+
 
 class VPool(NamedTuple):
     labeled_mask: torch.Tensor   # bool [D, n_pad]
@@ -52,9 +54,11 @@ def draw_window(pool: VPool, generator: torch.Generator, window: int):
     """Uniform random subsample of each device's unlabeled pool.
 
     Returns ``(indices [D, window] int64, valid [D, window] bool)``; when
-    fewer than ``window`` points remain unlabeled the tail is invalid."""
+    fewer than ``window`` points remain unlabeled the tail is invalid.  A
+    sharded fleet draws the uniforms at the global shape
+    (``launch.sharding.rand_rows``)."""
     mask = pool.labeled_mask
-    u = torch.rand(mask.shape, generator=generator, device=mask.device)
+    u = rand_rows(mask.shape, generator=generator, device=mask.device)
     scores = torch.where(mask, torch.full_like(u, -1.0), 1.0 + u)
     k = min(window, scores.shape[1])
     top, idx = torch.topk(scores, k, dim=1)

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.launch.sharding import rand_rows
 from repro_torch.nn import init as initializers
 
 
@@ -67,7 +68,9 @@ def dropout(x: torch.Tensor, rate: float, *,
 
     The keep-mask is ``keep_mask`` when given (tests inject the JAX
     package's own Bernoulli draws), else ``uniform < 1 - rate`` drawn from
-    ``generator`` — the construction of ``jax.random.bernoulli``.
+    ``generator`` — the construction of ``jax.random.bernoulli``.  ``x``
+    carries the leading device axis, so a sharded fleet draws it at the
+    global shape (``launch.sharding.rand_rows``).
     """
     if deterministic or rate == 0.0:
         return x
@@ -76,8 +79,8 @@ def dropout(x: torch.Tensor, rate: float, *,
         if generator is None:
             raise ValueError("stochastic dropout needs a generator or a "
                              "keep_mask")
-        keep_mask = torch.rand(x.shape, generator=generator,
-                               device=x.device) < keep
+        keep_mask = rand_rows(x.shape, generator=generator,
+                              device=x.device) < keep
     return torch.where(keep_mask, x / keep, torch.zeros_like(x))
 
 

@@ -81,16 +81,21 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         t = np.float32(step) + np.float32(1.0)
         c1 = float(np.float32(1.0) - np.float32(b1) ** t)
         c2 = float(np.float32(1.0) - np.float32(b2) ** t)
-        m = tree_map(lambda g, m: b1 * m.float() + (1 - b1) * g.float(),
+        # The in-place steps act only on fresh temporaries, and do the
+        # reference's operations in its order, so the bits are those of the
+        # plain expressions; they hold one [D, ...] temporary fewer at the
+        # largest leaf, where an LM fleet's update peaks.
+        m = tree_map(lambda g, m: (b1 * m.float()).add_((1 - b1) * g.float()),
                      grads, state["m"])
-        v = tree_map(lambda g, v: b2 * v.float() + (1 - b2) * g.float() ** 2,
-                     grads, state["v"])
+        v = tree_map(lambda g, v: (b2 * v.float()).add_(
+            (g.float() ** 2).mul_(1 - b2)), grads, state["v"])
 
         def upd(p, m, v):
             p32 = p.float()
-            step_vec = (m / c1) / (torch.sqrt(v / c2) + eps) \
-                + weight_decay * p32
-            return (p32 - lr_t * step_vec).to(p.dtype)
+            step_vec = torch.div(v, c2).sqrt_().add_(eps)
+            step_vec = torch.div(m, c1).div_(step_vec)
+            step_vec.add_(weight_decay * p32)
+            return (p32 - step_vec.mul_(lr_t)).to(p.dtype)
 
         new_p = tree_map(upd, params, m, v)
         cast = lambda a: a.to(state_dtype)

@@ -465,9 +465,22 @@ def test_rejections(fleet):
         fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,
                                  engine="async", upload_fraction=0.5,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,
-                                 engine="async", mesh=object(), device="cpu")
+    # the sharded device axis is ported: a one-rank mesh runs the async
+    # engine as the unsharded run does, bit for bit
+    from torch import distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    drive = lambda **kw: fed.run_federated_rounds(
+        cfg, shards, seed_set, test, rounds=1, engine="async", device="cpu",
+        **kw)
+    try:
+        (p_mesh, r_mesh), (p_one, r_one) = (
+            drive(mesh=make_device_mesh(device="cpu")), drive())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert r_mesh == r_one
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p_mesh),
+                                                 tree_leaves(p_one)))
 
 
 def test_async_telemetry_shapes(fleet):

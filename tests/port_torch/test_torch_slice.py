@@ -253,10 +253,10 @@ def test_unported_options_raise(call):
     shards = federated_split(make_digit_dataset(20, seed=0), 2, seed=0)
     seed_set, test = make_digit_dataset(6, seed=1), make_digit_dataset(5)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "comms":   # comms, hetero and topology are ported;
-            # the sharded device axis waits
+        if call == "comms":   # comms, hetero, topology and the sharded
+            # device axis are ported; fleet configs wait
             run_federated_rounds(cfg, shards, seed_set, test, engine="fused",
-                                 mesh=object(), device="cpu")
+                                 fleet=object(), device="cpu")
         elif call == "engine":  # the async engine is ported; traffic waits
             run_federated_rounds(cfg, shards, seed_set, test, engine="async",
                                  stream=object(), device="cpu")

@@ -537,9 +537,19 @@ def test_rejections(fleet):
     with pytest.raises(ValueError, match="topology requires"):
         fed.run_federated_rounds(eng.cfg, shards, seed_set, test, rounds=1,
                                  engine="vmap", topology=TOPO, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fed.run_experiment(scenario="fog", num_devices=8, mesh=object(),
-                           device="cpu")
+    # the sharded device axis is ported: a one-rank fog mesh runs the fog
+    # scenario as the unsharded run does, bit for bit
+    from torch import distributed as dist
+    from repro_torch.launch.mesh import make_fog_mesh
+    small = fed.fog_config(8, acquisitions=1, train_steps_per_acq=1,
+                           initial_train_steps=1, mc_samples=2)
+    run = lambda **kw: fed.run_experiment(small, scenario="fog", rounds=1,
+                                          n_test=20, device="cpu", **kw)[0]
+    try:
+        assert run(mesh=make_fog_mesh(1, 1, device="cpu")) == run()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_fog_scenario_carries_the_reference_report_keys():
