@@ -10,8 +10,9 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 2. build every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` each, all
    started together) into ``build/repro_torch/``;
 3. the acquisition-score kernel (K1) against its plain PyTorch version at
-   the LeNet paths' shapes (the classic engine's ``[T=16, W=200, C=10]``
-   and the legacy engine's ``[1, 16, 200, 10]`` among them), a ragged N,
+   the LeNet paths' shapes (the classic engine's ``[T=16, W=200, C=10]``,
+   the legacy engine's ``[1, 16, 200, 10]`` and the stream path's request
+   queues ``[256, 4, 16, 10]`` among them), a ragged N,
    C = 257 and bfloat16 input (atol 1e-5), at the LM fleet's
    vocabularies C = 32768 and 50288 in float32 and bfloat16, one
    device's rows at C = 50288 and the ragged C = 50287
@@ -60,7 +61,10 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    codec, 4 async events: ``fog_sync``, ``group_accept`` and the other
    rows exactly equal, β within 1e-6, the rest by the same rule) and
    ``uniform_topology(8, 1)`` against the flat run on the card (bit for
-   bit when two flat runs repeat their bits); the
+   bit when two flat runs repeat their bits); 4 events of live traffic on
+   8 devices (Poisson arrivals with burst and drift, score selection,
+   churn): the stream rows, queue depths, labeled counts and masks,
+   arrivals and staleness exactly equal, the rest by the same rule; the
    reduced SSM LM and a small decoder LM (fused rounds); the
    CPU port is held against the JAX package by the tests;
 8. the paper's main path: ``run_experiment(scenario="paper")`` at the
@@ -115,10 +119,20 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     then with ``CommsConfig(fog_compression="int8")``: a segment launch
     every round (the delta form), the fog→cloud bytes exact, the fog
     model finite;
-20. the sharded fleet (``launch.mesh``): (a) massive, fog and async once
-    more unsharded and once on a one-rank NCCL mesh (``make_device_mesh()``,
-    the fog path ``make_fog_mesh(1, 1)``), each equal to its first run
-    (phases 9, 17, 19) bit for bit when the two unsharded runs repeat
+21. live traffic: ``run_experiment(scenario="stream", num_devices=256,
+    rounds=8)`` (``default_async(256)`` and ``default_stream(256)``: ~2
+    requests a device a simulated second with a 4x skew, queues of 16,
+    serve at most 0.6 nats, escalate the top 2 from 1.0, drift over 8 s):
+    wall, simulated seconds, the traffic totals and serve accuracy, the
+    escalation uplink bytes exact, K1 exactly 24 launches (3 an event: 2
+    in the candidate round, 1 on the queues), K2 one an accepting event,
+    weights summing to 1 on those, conservation of requests (offered =
+    dropped + served + escalated + still queued), the fog model finite;
+20. the sharded fleet (``launch.mesh``): (a) massive, fog, async and stream
+    once more unsharded and once on a one-rank NCCL mesh
+    (``make_device_mesh()``, the fog path ``make_fog_mesh(1, 1)``), each
+    equal to its first run (phases 9, 17, 19, 21) bit for bit when the two
+    unsharded runs repeat
     their bits, else within their gap, with as many K1 and K2 launches;
     the walls side by side; (b) massive at D = 256 split over two
     processes that share the card through a gloo group this script
@@ -129,14 +143,14 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 and phases 15-17 and 19 again under the
+    four paths of phases 8-10 and phases 15-17, 19 and 21 again under the
     CUDA activity tracer (wall, device-busy time, idle share, the
     kernels with the most device time, and the host seconds spent
     reading the trace), and phase 13's int8 run and phase 14 with host
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
-18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19 and
-    20 (a), K2's segment-form launches of phase 19 apart, error, times,
+18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19, 21
+    and 20 (a), K2's segment-form launches of phase 19 apart, error, times,
     bound), and last the ``{"ok": true, "device": ...}`` line.
 
 Each phase's heading shows the seconds since the start.
@@ -348,6 +362,8 @@ def check_acquisition_kernel(torch, k1):
                                                       (16, 800, 10)),
         "massive [D=256, T=4, W=32, C=10]": k1_inputs(torch, gen,
                                                       (256, 4, 32, 10)),
+        "stream queues [D=256, T=4, Q=16, C=10]": k1_inputs(
+            torch, gen, (256, 4, 16, 10)),
         "ragged [T=8, N=333, C=10]": k1_inputs(torch, gen, (8, 333, 10)),
         "wide [T=16, N=128, C=257]": k1_inputs(torch, gen, (16, 128, 257)),
         "bf16 [D=4, T=16, W=200, C=10]": k1_inputs(
@@ -361,7 +377,8 @@ def check_acquisition_kernel(torch, k1):
     shapes = []
     for name in ("paper [D=4, T=16, W=200, C=10]",
                  "massive [D=256, T=4, W=32, C=10]",
-                 "classic [T=16, W=200, C=10]"):
+                 "classic [T=16, W=200, C=10]",
+                 "stream queues [D=256, T=4, Q=16, C=10]"):
         lp = cases[name]
         ms, how, host = timed(torch, lambda: k1.acquisition_scores(lp),
                               "acquisition_scores_kernel")
@@ -1541,6 +1558,106 @@ def check_async_events_against_cpu(torch, fed, interop, lenet, tree_leaves):
           f"and pending max_abs_err {err:.3e}, {far} entries beyond 1e-4")
 
 
+def check_stream_events_against_cpu(torch, fed, interop, lenet, tree_leaves):
+    """Phase 7, live traffic: 4 events of phase 7's RNG-free 8-device LeNet
+    fleet with a quorum of 2 and a 0.5 s timer, Poisson arrivals (20 a
+    device a simulated second, 4x skew, burst 0.5, drift κ 2 over 8 s)
+    into queues of 4, score selection (serve at most 0.45 nats, escalate
+    the top 2 from 1.2) and churn, on the card and on the CPU from the
+    same start.  The stream rows, queue depths, labeled counts and masks,
+    arrivals, staleness and liveness exactly equal; the fog model, params
+    and banked deltas by phase 7's rule.  Prints the least distance of a
+    queued score to a threshold on each side (the exact rows need the
+    card's scores on the CPU's side of each threshold)."""
+    import numpy as np
+    from repro_torch.core import async_engine, comms
+    from repro_torch.core.async_engine import AsyncConfig
+    from repro_torch.core.engine import EdgeEngine
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.core.stream import STREAM_REPORT_KEYS, StreamConfig
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import federated_split
+
+    D, events = 8, 4
+    cfg = fed.FederatedALConfig(num_devices=D, initial_train=10,
+                                acquisitions=2, k_per_acquisition=4,
+                                pool_window=64, mc_samples=4,
+                                train_steps_per_acq=5)
+    mcfg = lenet.LeNetConfig(p_conv=0.0, p_fc=0.0)
+    shards = federated_split(make_digit_dataset(320, seed=0), D, seed=0)
+    seed_set, test = make_digit_dataset(10, seed=11), make_digit_dataset(
+        200, seed=5)
+    p0 = interop.params_to_jax(lenet.LeNet.init(
+        torch.Generator().manual_seed(0), mcfg))
+    traffic = StreamConfig(arrival_rate=20.0, rate_skew=4.0, burst=0.5,
+                           queue_cap=4, max_arrivals=4, serve_threshold=0.45,
+                           escalate_threshold=1.2, escalate_k=2,
+                           drift_kappa=2.0, drift_period=8.0)
+    kw = dict(async_cfg=AsyncConfig(quorum=2, timer=0.5, dist="exp",
+                                    mean_latency=1.0, latency_skew=10.0),
+              stream=traffic,
+              faults=FaultConfig(death_rate=0.3, birth_rate=0.5, seed=3))
+    decide = async_engine.cascade_decide
+    out, margins = {}, {}
+    for dev in ("cuda", "cpu"):
+        queued = []
+
+        def keep(scores, rank, idx, labeled, valid, *args):
+            queued.append(scores[valid].float().cpu())
+            return decide(scores, rank, idx, labeled, valid, *args)
+
+        eng = EdgeEngine(fed.Trainer(cfg, model_cfg=mcfg, device=dev), cfg,
+                         shards, seed_set, test,
+                         total_acquisitions=events * (cfg.acquisitions
+                                                      + traffic.escalate_k),
+                         device=dev)
+        async_engine.cascade_decide = keep
+        try:
+            st, recs, fog = eng.run_async(
+                eng.init_state(interop.params_from_jax(p0, dev)), events,
+                **kw)
+        finally:
+            async_engine.cascade_decide = decide
+        scores = torch.cat(queued)
+        margins[dev] = min(float((scores - t).abs().min()) for t in (
+            traffic.serve_threshold, traffic.escalate_threshold))
+        out[dev] = ({k: v.cpu().numpy() for k, v in recs.items()},
+                    st.pool.labeled_mask.cpu().numpy(),
+                    [tree_leaves(interop.params_to_jax(t))
+                     for t in (fog, st.params, st.pending)])
+    (rg, mg, pg), (rc, mc, pc) = out["cuda"], out["cpu"]
+    exact = STREAM_REPORT_KEYS + ("upload_mask", "arrivals", "sim_time",
+                                  "timer_fired", "staleness", "n_labeled",
+                                  "live")
+    for key in exact:
+        if not np.array_equal(rg[key], rc[key]):
+            raise AssertionError(f"stream: card and CPU {key} rows differ: "
+                                 f"{rg[key]} vs {rc[key]}")
+    if not np.array_equal(mg, mc):
+        raise AssertionError("stream: card and CPU labeled masks differ")
+    reach = cfg.acquisitions * cfg.train_steps_per_acq * cfg.lr
+    err, far = 0.0, 0
+    for name, leaves_g, leaves_c in zip(("fog", "params", "pending"), pg, pc):
+        for a, b in zip(leaves_g, leaves_c, strict=True):
+            gap = np.abs(a - b)
+            err, n_far = max(err, float(gap.max())), int((gap > 1e-4).sum())
+            far += n_far
+            if n_far > comms.split_budget(gap.size) or gap.max() > reach:
+                raise AssertionError(f"stream: card vs CPU {name} differ by "
+                                     f"up to {gap.max()}, {n_far} entries "
+                                     "beyond 1e-4")
+    sums = {k: float(rg[k].sum()) for k in STREAM_REPORT_KEYS[:-1]}
+    if not all(sums[k] > 0 for k in ("served", "escalated",
+                                     "stream_dropped")):
+        raise AssertionError(f"stream: the case must serve, escalate and "
+                             f"drop: {sums}")
+    print(f"  card vs CPU stream events: {sums}, final queue depths "
+          f"{rg['queue_depth'][-1].tolist()}, rows and labeled masks "
+          f"equal; least score-to-threshold distance card {margins['cuda']:.4f}"
+          f", CPU {margins['cpu']:.4f}; fog, params and pending max_abs_err "
+          f"{err:.3e}, {far} entries beyond 1e-4")
+
+
 class ChurnFleet:
     """``scenario="churn"`` at ``num_devices`` on the card, built as
     ``run_experiment`` builds it (data, seed fit, engine) but kept open,
@@ -1753,6 +1870,81 @@ def run_async_path(torch, fed, reset, read, first):
     if not (acc == acc and 0.0 <= acc <= 1.0):
         raise AssertionError(f"async: final accuracy {acc}")
     return wall, launches, tel
+
+
+def run_stream_path(torch, fed, comms, reset, read, first):
+    """Phase 21: ``run_experiment(scenario="stream", num_devices=256,
+    rounds=8)``, ``default_async(256)`` and ``default_stream(256)`` over 8
+    events.  Each event runs the candidate round (K1 2 launches at R = 2)
+    and scores every device's request queue ``[256, T=4, Q=16, C=10]``
+    (K1 1), and an accepting event one Eq. 1 reduce (K2 1): K1 exactly 24,
+    K2 the accepting events; weights summing to 1 on those and 0 on the
+    others; traffic totals, serve accuracy in [0, 1], the escalation
+    uplink bytes exact (``comms.sample_bytes`` of a 28 x 28 x 1 image, its
+    label included, an escalation), and conservation: every offered
+    request was dropped, served, escalated or is still queued (every
+    shard of the split holds samples, which the run checks)."""
+    from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.data.federated_split import dirichlet_split
+    reset()
+    t0 = time.perf_counter()
+    with FogModels(fed) as fog:
+        rep = fed.run_experiment(scenario="stream", num_devices=256,
+                                 rounds=8)[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read()
+    fog.check_finite(torch, "stream")
+    first["stream"] = (rep, fog.models[-1], wall, launches)
+    del fog
+    tel, st = rep["async"], rep["stream"]
+    accepting = sum(1 for r in rep["rounds"] if r["arrivals"] > 0)
+    print(f"  stream: wall {wall:.3f} s, launches {launches}; "
+          f"{tel['sim_seconds_total']:.4f} simulated s over {tel['events']} "
+          f"events, accepting events {accepting}, final_acc "
+          f"{tel['final_acc']}")
+    print(f"  stream traffic: {st}")
+    if launches["acquisition_scores"] != 24:
+        raise AssertionError(f"stream: {launches['acquisition_scores']} K1 "
+                             "launches, 8 events of R = 2 plus the queues "
+                             "make 24")
+    if not 1 <= accepting == launches["fused_aggregation"]:
+        raise AssertionError(f"stream: {launches['fused_aggregation']} K2 "
+                             f"launches for {accepting} accepting events")
+    for r in rep["rounds"]:
+        wsum = sum(r["aggregation"]["weights"])
+        want = 1.0 if r["arrivals"] > 0 else 0.0
+        if not abs(wsum - want) < 1e-5:
+            raise AssertionError(f"stream event {r['round']}: weights sum "
+                                 f"{wsum}, arrivals {r['arrivals']}")
+    acc, serve_acc = tel["final_acc"], st["serve_accuracy"]
+    if not (acc == acc and 0.0 <= acc <= 1.0 and 0.0 <= serve_acc <= 1.0):
+        raise AssertionError(f"stream: final accuracy {acc}, serve "
+                             f"accuracy {serve_acc}")
+    per = comms.sample_bytes((28, 28, 1))
+    if not (st["escalated_total"] > 0 and st["escalation_uplink_bytes"]
+            == st["escalated_total"] * per):
+        raise AssertionError(f"stream: {st['escalated_total']} escalations, "
+                             f"{st['escalation_uplink_bytes']} uplink bytes "
+                             f"({per} a sample)")
+    cfg = fed.stream_config(256)
+    shards = dirichlet_split(
+        make_digit_dataset(fed.MASSIVE_SAMPLES_PER_DEVICE * 256,
+                           seed=cfg.seed), 256,
+        alpha=fed.HETERO_DIRICHLET_ALPHA, seed=cfg.seed)
+    if min(len(d) for d in shards) == 0:
+        raise AssertionError("stream: an empty shard; conservation holds "
+                             "for non-empty shards only")
+    held = sum(rep["rounds"][-1]["queue_depth"])
+    out = st["dropped_total"] + st["served_total"] + st["escalated_total"]
+    print(f"  stream conservation: offered {st['offered_total']} = dropped "
+          f"{st['dropped_total']} + served {st['served_total']} + escalated "
+          f"{st['escalated_total']} + queued {held:.0f}; escalation uplink "
+          f"{st['escalation_uplink_bytes']} bytes ({per} a sample)")
+    if st["offered_total"] != out + held:
+        raise AssertionError(f"stream: offered {st['offered_total']} != "
+                             f"{out} + {held} queued")
+    return wall, launches, {"async": tel, "stream": st}
 
 
 def small_fog_fleet(torch, fed, interop, lenet, events: int):
@@ -2098,21 +2290,24 @@ def fog_gap(torch, a, b):
 SHARDED_PATHS = {"massive": dict(scenario="massive", num_devices=256,
                                  rounds=2),
                  "fog": dict(scenario="fog", num_devices=256, rounds=4),
-                 "async": dict(scenario="async", num_devices=256, rounds=8)}
+                 "async": dict(scenario="async", num_devices=256, rounds=8),
+                 "stream": dict(scenario="stream", num_devices=256,
+                                rounds=8)}
 
 
 def run_sharded_paths(torch, fed, reset, read, first):
-    """Phase 20 (a): each of massive, fog and async once more unsharded and
-    once on a one-rank NCCL mesh (``make_device_mesh()``; the fog path on
-    ``make_fog_mesh(1, 1)``).  Against the path's first run (phases 9, 17
-    and 19): when the two unsharded runs repeat their bits, the meshed run
-    must too; else it must lie within their gap.  K1 and K2 launch as
-    often as unsharded.  The group is destroyed after."""
+    """Phase 20 (a): each of massive, fog, async and stream once more
+    unsharded and once on a one-rank NCCL mesh (``make_device_mesh()``;
+    the fog path on ``make_fog_mesh(1, 1)``).  Against the path's first
+    run (phases 9, 17, 19 and 21): when the two unsharded runs repeat
+    their bits, the meshed run must too; else it must lie within their
+    gap.  K1 and K2 launch as often as unsharded.  The group is destroyed
+    after."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_device_mesh, make_fog_mesh
 
     meshes = {"massive": make_device_mesh(), "fog": make_fog_mesh(1, 1)}
-    meshes["async"] = meshes["massive"]
+    meshes["async"] = meshes["stream"] = meshes["massive"]
     m = meshes["massive"]
     print(f"  one-rank group: backend {m.backend}, world {m.world}, "
           f"device {m.device}")
@@ -2351,6 +2546,7 @@ def main() -> int:
     check_hetero_churn_rounds_against_cpu(torch, fed, interop, lenet,
                                           tree_leaves)
     check_async_events_against_cpu(torch, fed, interop, lenet, tree_leaves)
+    check_stream_events_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_fog_rounds_against_cpu(torch, fed, interop, lenet, tree_leaves)
     check_small_lm_rounds_against_cpu(torch, fed, interop)
 
@@ -2450,8 +2646,11 @@ def main() -> int:
     fog_path = run_fog_path(torch, fed, comms, lenet, k2, reset, read,
                             first)
     torch.cuda.empty_cache()
+    phase("phase 21: stream path (scenario='stream', D=256, 8 events)")
+    stream_path = run_stream_path(torch, fed, comms, reset, read, first)
+    torch.cuda.empty_cache()
     phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
-          "async), then massive split over two processes on gloo")
+          "async, stream), then massive split over two processes on gloo")
     sharded = run_sharded_paths(torch, fed, reset, read, first)
     torch.cuda.empty_cache()
     sharded["gloo split"] = run_gloo_split(torch, first["massive"])
@@ -2490,7 +2689,9 @@ def main() -> int:
         ("async", lambda: fed.run_experiment(
             scenario="async", num_devices=256, rounds=8)),
         ("fog", lambda: fed.run_experiment(
-            scenario="fog", num_devices=256, rounds=4)))
+            scenario="fog", num_devices=256, rounds=4)),
+        ("stream", lambda: fed.run_experiment(
+            scenario="stream", num_devices=256, rounds=8)))
     path_profiles = {}
     for name, fn in profiled:
         torch.cuda.reset_peak_memory_stats()
@@ -2528,7 +2729,7 @@ def main() -> int:
     all_launches = [paper_launches, massive_launches, *lm_launches.values(),
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
-                    hetero[1], churn[1], async_path[1],
+                    hetero[1], churn[1], async_path[1], stream_path[1],
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -2555,6 +2756,9 @@ def main() -> int:
                                 "launches": async_path[1],
                                 "telemetry": async_path[2]},
                       "async_resume": async_resume, "fog": fog_path,
+                      "stream": {"wall_s": stream_path[0],
+                                 "launches": stream_path[1],
+                                 "telemetry": stream_path[2]},
                       "sharded": sharded,
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))

@@ -38,8 +38,12 @@ and the loop equals ``EdgeEngine.run_rounds_fused`` within 1e-5 (delta
 form against the direct reduce).  A fog topology (``topology=``) carries
 a ``[G, ...]`` stack of fog models: arrivals fold into their own group
 (the kernel's segment form) and every ``local_steps``-th event collapses
-the tier.  Live traffic (``stream=``, ``fleet=``) raises
-``NotImplementedError`` naming its ROADMAP item.
+the tier.  Live traffic (``stream=``, ``core.stream``) adds step 2b:
+requests arrive into bounded per-device queues over each event's
+simulated gap, and the devices that committed a round score their queue
+(the acquisition-score kernel again) and serve, escalate or keep each
+request (``core.cascade.cascade_decide``).  ``fleet=``
+(``core.fleet.FleetConfig``) bundles the options.
 
 Under a mesh (``EdgeEngine(mesh=...)``) the event queue stays host numpy
 and is the same on every rank: each computes the completion times,
@@ -60,12 +64,14 @@ from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import fleet as fleet_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import stream as stream_mod
 from repro_torch.core import topology as topo_mod
-from repro_torch.core.engine import (_UNPORTED_FUSED, CODEC_SPAN,
-                                     EngineState, _on_fleet, _reduce, _rows,
-                                     _slot0, _where_rows, copy_generator,
-                                     reject_unported)
+from repro_torch.core.cascade import cascade_decide
+from repro_torch.core.engine import (CODEC_SPAN, EngineState, _on_fleet,
+                                     _reduce, _rows, _slot0, _where_rows,
+                                     copy_generator, score_logprobs)
 from repro_torch.core.hetero import DECAYS
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.tree import (tree_items, tree_leaves, tree_map,
@@ -77,10 +83,6 @@ _ASYNC_AGGREGATIONS = ("average", "weighted", "fedavg_n")
 
 # offset of the latency stream's seed from ``AsyncConfig.seed``
 LATENCY_STREAM = 0x6C6174
-
-# options of the reference's run_events_fused that later slices port
-_UNPORTED_EVENTS = {**_UNPORTED_FUSED,
-                    "stream": "Queue 1 item 14 (streaming and scenarios)"}
 
 
 @dataclass(frozen=True)
@@ -242,6 +244,76 @@ def _event_uploads(codec, pending, residual, arrived, excl, generator, *,
     return rows, (scales or None)
 
 
+def _traffic(engine, stream, event_idx: int, t_next, lam, shards, queue,
+             params, pool, commit_l):
+    """Step 2b of an event: live traffic (``core.stream``).
+
+    ``t_next`` is the end of the event's gap on the simulated clock (the
+    drift's phase), ``lam [D]`` each device's mean arrivals over the gap
+    before the burst (rate · Δt, 0 for a dead device), ``shards`` the
+    whole fleet's ``(labels, valid)`` as host numpy, ``queue`` this
+    rank's ``(idx, valid) [D_local, Q]``.  The arrivals (``stream_draws``,
+    at the global shape, sliced) join the queues; every device scores
+    its queue (through the acquisition-score kernel, or uniforms for
+    ``acquisition_fn="random"``) and ``cascade_decide`` splits it; the
+    decisions of devices that did not commit this event's round are
+    dropped.  Escalations enter the pool
+    through ``vpool.acquire`` on the rows that escalated something, and
+    served and escalated requests leave the queue.  Returns ``(pool,
+    queue, rows)``, ``rows`` the event's fleet sums and ``queue_depth
+    [D]``."""
+    fl, dev, trainer, cfg = (engine.fleet, engine.device, engine.trainer,
+                             engine.cfg)
+    loc, gather = fl.local, fl.gather
+    to_dev = lambda a: torch.as_tensor(a, device=dev)
+    labels, valid = shards
+    A = stream.max_arrivals
+    logits = stream_mod.drift_logits(labels, valid, stream.drift_kappa,
+                                     stream.drift_period, t_next,
+                                     trainer.adapter.num_classes)
+    draws = stream_mod.stream_draws(stream, event_idx, lam, logits)
+    n = np.clip(draws.counts, 0, A)
+    ok = (np.arange(A)[None, :] < n[:, None]) & valid.any(axis=1)[:, None]
+    q_idx, q_valid, dropped = stream_mod.queue_append(
+        *queue, loc(to_dev(draws.picks)), loc(to_dev(ok)))
+
+    rows = torch.arange(q_idx.shape[0], device=dev)[:, None]
+    x_q = engine.images[rows, q_idx]
+    preds = trainer.eval_logits(params, x_q).argmax(-1)
+    if cfg.acquisition_fn == "random":
+        scores = loc(to_dev(draws.score_u))
+    else:
+        scores = score_logprobs(cfg.acquisition_fn, trainer.score_logprobs(
+            params, x_q, engine.stream_generator(stream, event_idx),
+            cfg.mc_samples))
+    # the thresholds as the float32 values the reference compares with
+    f32 = lambda v: float(np.float32(v))
+    if stream.selection == "random":
+        # the control arm: the same budget on uniformly random requests
+        rank, esc_thr = loc(to_dev(draws.rank_u)), -float("inf")
+    else:
+        rank, esc_thr = scores, f32(stream.escalate_threshold)
+    serve, escal, sel, sel_ok = cascade_decide(
+        scores, rank, q_idx, torch.gather(pool.labeled_mask, 1, q_idx),
+        q_valid, f32(stream.serve_threshold), esc_thr, stream.escalate_k)
+    committed = (commit_l > 0)[:, None]
+    serve, escal, sel_ok = serve & committed, escal & committed, \
+        sel_ok & committed
+    n_esc = sel_ok.sum(1)
+    # the fog labels the escalations; they train from the next dispatch
+    pool = vpool.VPool(*_where_rows(
+        n_esc, tuple(vpool.acquire(pool, q_idx, sel, sel_ok)), tuple(pool)))
+    correct = torch.gather(engine.labels, 1, q_idx) == preds
+    q_valid = q_valid & ~(serve | escal)
+    total = lambda v: gather(v).sum().float()
+    out = {"offered": torch.tensor(float(n.sum()), device=dev),
+           "stream_dropped": total(dropped), "served": total(serve.sum(1)),
+           "serve_correct": total((serve & correct).sum(1)),
+           "escalated": total(n_esc),
+           "queue_depth": gather(q_valid.sum(1)).float()}
+    return pool, (q_idx, q_valid), out
+
+
 @_on_fleet
 def run_events_fused(engine, state: EngineState, events: int, *,
                      async_cfg: Optional[AsyncConfig] = None,
@@ -307,12 +379,36 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     faults, ``rejected`` / ``clipped`` / ``upload_norms`` / ``accepted``
     with guards; ``fog_sync``, ``beta`` and ``group_accept`` with a
     topology.  ``state.pending`` holds the deltas still in flight and
-    ``state.staleness`` their ages."""
-    reject_unported("run_events_fused", _UNPORTED_EVENTS, stream=stream,
-                    fleet=fleet)
+    ``state.staleness`` their ages.
+
+    ``stream`` (``core.stream.StreamConfig``) runs live traffic, step 2b
+    between the candidate round and step 3 (``_traffic``): requests
+    arrive over the event's gap ``[t_now, t_event]`` (``t_now`` when
+    ``t_event`` is infinite) into per-device queues that start empty each
+    call, and the committed devices serve, escalate into their pool, or
+    keep them.  This event's escalations count in step 3's labeled counts.
+    The recs gain the fleet sums ``offered``, ``stream_dropped``,
+    ``served``, ``serve_correct`` and ``escalated`` and the ``queue_depth
+    [D]`` row (``core.stream.stream_telemetry`` summarizes them); the
+    pool must hold ``escalate_k`` more slots an event.  With zero traffic
+    the run equals the plain one bit for bit.
+
+    ``fleet`` (``core.fleet.FleetConfig``) bundles ``comms``,
+    ``async_cfg``, ``faults``, ``guards``, ``topology``, ``stream`` and
+    ``hetero`` in one value; the per-feature options keep working, and
+    mixing the two forms warns (the options win, field by field)."""
+    fleet = fleet_mod.resolve_fleet(
+        fleet, "run_events_fused",
+        allowed=("comms", "async_cfg", "faults", "guards", "topology",
+                 "stream", "hetero"),
+        comms=comms, async_cfg=async_cfg, faults=faults, guards=guards,
+        topology=topology, stream=stream, hetero=hetero)
+    comms, async_cfg, faults = fleet.comms, fleet.async_cfg, fleet.faults
+    guards, topology, stream = fleet.guards, fleet.topology, fleet.stream
+    hetero = fleet.hetero
     if async_cfg is None:
         raise ValueError("run_events_fused needs an AsyncConfig "
-                         "(async_cfg=)")
+                         "(async_cfg= or fleet.async_cfg)")
     if aggregation not in _ASYNC_AGGREGATIONS:
         raise ValueError(
             f"async aggregation must be one of "
@@ -333,7 +429,9 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     if state.rng is None:
         raise ValueError("the state has no generator (a restored "
                          "checkpoint): call resume_state first")
-    engine._check_capacity(state, rounds=events)
+    engine._check_capacity(
+        state, rounds=events,
+        extra_per_round=0 if stream is None else stream.escalate_k)
     if guards is not None and guards.policy == "off":
         guards = None
     D, dev, trainer = engine.num_devices, engine.device, engine.trainer
@@ -387,6 +485,16 @@ def run_events_fused(engine, state: EngineState, events: int, *,
     dispatch = np.ones((D,), np.float32)
     next_done = np.zeros((D,), np.float32)
     t_now = np.float32(0.0)
+    if stream is not None:
+        # the arrival rates, the whole fleet's shards (host, for the
+        # draws) and this rank's queues, which start empty
+        srates = stream_mod.device_arrival_rates(stream, D)
+        shards = (gather(engine.labels).cpu().numpy(),
+                  gather(engine.valid).cpu().numpy())
+        queue = (torch.zeros((fl.local_rows, stream.queue_cap),
+                             dtype=torch.int64, device=dev),
+                 torch.zeros((fl.local_rows, stream.queue_cap),
+                             dtype=torch.bool, device=dev))
 
     counters.count_dispatch()
     # a copy of the state's generator: two calls from one state draw alike
@@ -492,6 +600,18 @@ def run_events_fused(engine, state: EngineState, events: int, *,
                                     else p - b), params, base)
             pending = _where_rows(commit_l, banked, pending)
             del banked, base
+
+            # ---- 2b. live traffic: arrivals over the event's gap, then
+            # the cascade on the committed devices (before step 3, so this
+            # event's escalations count in the labeled counts)
+            if stream is not None:
+                t_next = t_event if np.isfinite(t_event) else t_now
+                rate = srates if live is None else srates * (live > 0)
+                lam = rate * np.maximum(t_next - t_now, np.float32(0.0))
+                pool, queue, traffic = _traffic(
+                    engine, stream, e_abs, t_next, lam, shards,
+                    queue, params, pool, commit_l)
+                row.update(traffic)
 
             # ---- 3. staleness-decayed Eq. 1 over the arrivals
             counts = gather(vpool.n_labeled(pool).float())

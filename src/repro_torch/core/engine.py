@@ -32,9 +32,10 @@ staleness-decayed weights and per-device step budgets; ``faults=`` /
 and corrupted uploads, label noise and the fog node's guards;
 ``topology=`` (``core.topology``) splits the fleet into fog groups that
 aggregate their own slots every round (the kernel's segment form) and
-sync to a global model every ``local_steps``-th round.  The fleet option
-raises ``NotImplementedError`` naming its ROADMAP item.  ``run_async``
-drops the round barrier (``core.async_engine``).
+sync to a global model every ``local_steps``-th round.  ``fleet=``
+(``core.fleet.FleetConfig``) bundles these options in one value.
+``run_async`` drops the round barrier (``core.async_engine``), with live
+traffic as an option (``core.stream``).
 
 ``EdgeEngine(mesh=...)`` splits the device axis over a ``torch.distributed``
 group (``launch.mesh``), one process a shard: every rank calls the same
@@ -85,7 +86,9 @@ from repro_torch.core import aggregation as agg_mod
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters, vpool
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import fleet as fleet_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import stream as stream_mod
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.model_adapter import excluded_paths
 from repro_torch.device import resolve_device
@@ -103,23 +106,8 @@ _FUSED_SCORES = ("entropy", "bald", "vr")
 # and the error-feedback update, without the Eq. 1 reduce)
 CODEC_SPAN = "comms_codec"
 
-# options of the reference's run_rounds_fused that later slices port
-_UNPORTED_FUSED = {
-    "fleet": "Queue 1 item 14 (streaming and scenarios)",
-}
-
 # offset of the fog codec's seed from ``cfg.seed``
 FOG_STREAM = 0x666F67
-
-
-def reject_unported(where: str, table: Dict[str, str], **options) -> None:
-    """Raise ``NotImplementedError`` for the first option in ``options``
-    that is set, naming the ROADMAP item that ports it."""
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{where}({name}=...) is not ported yet: ROADMAP.md "
-                f"{table[name]}")
 
 
 class EngineState(NamedTuple):
@@ -502,12 +490,22 @@ class EdgeEngine:
         return [int(n) for n in self.fleet.gather(
             vpool.n_labeled(state.pool)).tolist()]
 
-    def _check_capacity(self, state: EngineState, *, rounds: int = 1):
-        """A round appends R·k slots per device; the slot write clamps past
-        capacity (as ``dynamic_update_slice`` does), so fail loudly (on
-        every rank: the fill is the whole fleet's)."""
+    def stream_generator(self, stream, event_idx: int) -> torch.Generator:
+        """The generator the live-traffic queue's MC-dropout masks of event
+        ``event_idx`` (absolute index) draw from: seeded from the stream's
+        own seed (``StreamConfig.seed + stream.STREAM_SEED``), never the
+        round's, so zero traffic replays the plain event loop."""
+        return torch.Generator(device=self.device).manual_seed(
+            stream.seed + stream_mod.STREAM_SEED + 104729 * event_idx)
+
+    def _check_capacity(self, state: EngineState, *, rounds: int = 1,
+                        extra_per_round: int = 0):
+        """A round appends R·k slots per device, plus ``extra_per_round``
+        (a stream's escalations); the slot write clamps past capacity (as
+        ``dynamic_update_slice`` does), so fail loudly (on every rank: the
+        fill is the whole fleet's)."""
         need = int(self.fleet.gather(state.pool.n_filled).max()) \
-            + rounds * self.cfg.acquisitions * self.k
+            + rounds * (self.cfg.acquisitions * self.k + extra_per_round)
         if need > self.capacity:
             raise ValueError(
                 f"pool capacity {self.capacity} cannot absorb {rounds} "
@@ -732,8 +730,23 @@ class EdgeEngine:
         schedules are the whole fleet's on every rank, the ``[D]`` vectors
         are gathered, each reduce sums the ranks' partial reduces, and
         every rank returns the same records and fog model; the state holds
-        the rank's rows."""
-        reject_unported("run_rounds_fused", _UNPORTED_FUSED, fleet=fleet)
+        the rank's rows.
+
+        ``fleet`` (``core.fleet.FleetConfig``) bundles ``comms``,
+        ``hetero``, ``faults``, ``guards``, ``live_mask`` and ``topology``
+        in one value; the per-feature options keep working, and mixing
+        the two forms warns (the options win, field by field).  Its
+        ``async_cfg`` and ``stream`` belong to ``run_async`` and raise
+        here."""
+        fleet = fleet_mod.resolve_fleet(
+            fleet, "run_rounds_fused",
+            allowed=("comms", "hetero", "faults", "guards", "live_mask",
+                     "topology"),
+            comms=comms, hetero=hetero, faults=faults, guards=guards,
+            live_mask=live_mask, topology=topology)
+        comms, hetero, faults = fleet.comms, fleet.hetero, fleet.faults
+        guards, live_mask = fleet.guards, fleet.live_mask
+        topology = fleet.topology
         if aggregation not in _AGGREGATIONS:
             raise ValueError(f"unknown aggregation {aggregation!r}: "
                              f"use {' | '.join(_AGGREGATIONS)}")
@@ -1149,9 +1162,10 @@ class EdgeEngine:
                   start_event: int = 0, faults=None, guards=None,
                   topology=None, stream=None, hetero=None, fleet=None):
         """Rounds-free FedAsync / FedBuff aggregation: ``events`` quorum-
-        or timer-triggered fog events over simulated device latencies
-        (``core.async_engine.run_events_fused``, of which this is a thin
-        delegate)."""
+        or timer-triggered fog events over simulated device latencies,
+        with live traffic under ``stream`` and the options bundled in
+        ``fleet`` (``core.async_engine.run_events_fused``, of which this is
+        a thin delegate)."""
         from repro_torch.core.async_engine import run_events_fused
         return run_events_fused(self, state, events, async_cfg=async_cfg,
                                 aggregation=aggregation, comms=comms,

@@ -18,11 +18,15 @@ optional compressed uploads, heterogeneous fleets, faults and guards).
 FedBuff quorum or a timer over simulated device latencies
 (``core.async_engine``).  ``topology=`` (``core.topology``) makes the fog
 tier explicit on both: fog groups aggregate their own slots and sync to
-the cloud every ``local_steps``-th round.  ``run_experiment`` runs the
-``paper``, ``massive``, ``hetero``, ``async``, ``churn``, ``fog`` and
-``lm`` scenarios.  The
-``lm`` fleet swaps LeNet for an LM adapter (``core.model_adapter``) on
-token shards (``data.lm``).
+the cloud every ``local_steps``-th round.  ``stream=`` (``core.stream``)
+makes unlabeled requests arrive on the async engine's simulated clock,
+served or escalated to the fog by the selection cascade.  Every option can
+come bundled as ``fleet=`` (``core.fleet.FleetConfig``).
+``run_experiment`` runs the eight scenarios of the ``SCENARIOS`` registry
+(``paper``, ``massive``, ``hetero``, ``async``, ``churn``, ``fog``,
+``stream`` and ``lm``), and ``report_schema`` names the keys their
+reports carry.  The ``lm`` fleet swaps LeNet for an LM adapter
+(``core.model_adapter``) on token shards (``data.lm``).
 Everything runs on ``device`` (default ``"cuda"``; see
 ``repro_torch.device``).  Reports carry the reference's keys, the byte
 ledger's ``"comms"`` entry (``core.comms``) included.
@@ -30,7 +34,7 @@ ledger's ``"comms"`` entry (``core.comms``) included.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -40,20 +44,23 @@ from repro_torch.core import async_engine as async_mod
 from repro_torch.core import comms as comms_mod
 from repro_torch.core import counters
 from repro_torch.core import faults as faults_mod
+from repro_torch.core import fleet as fleet_mod
 from repro_torch.core import hetero as hetero_mod
+from repro_torch.core import stream as stream_mod
 from repro_torch.core import topology as topo_mod
 from repro_torch.core.aggregation import (fedavg, fedavg_n, opt_model,
                                           weighted_average)
 from repro_torch.core.async_engine import AsyncConfig
 from repro_torch.core.comms import CommsConfig
-from repro_torch.core.engine import (EdgeEngine, reject_unported,
-                                     score_logprobs)
+from repro_torch.core.engine import EdgeEngine, score_logprobs
 from repro_torch.core.faults import FaultConfig, GuardConfig
+from repro_torch.core.fleet import FleetConfig
 from repro_torch.core.hetero import HeteroConfig
 from repro_torch.core.mc_dropout import mc_logprobs
 from repro_torch.core.model_adapter import (LeNetAdapter, ModelAdapter,
                                            SSMAdapter)
 from repro_torch.core.pool import ActivePool
+from repro_torch.core.stream import StreamConfig
 from repro_torch.data.digits import SyntheticDigits
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -347,13 +354,6 @@ def upload_mask_schedule(num_devices: int, upload_fraction: float, seed: int,
     return mask
 
 
-# options of the reference's round functions that later slices port
-_UNPORTED_OPTIONS = {
-    "stream": "Queue 1 item 14 (streaming and scenarios)",
-    "fleet": "Queue 1 item 14 (streaming and scenarios)",
-}
-
-
 def _check_engine(engine: str, allowed) -> None:
     if engine not in allowed:
         raise ValueError(f"unknown engine {engine!r}: use "
@@ -368,6 +368,7 @@ _FEATURE_ENGINES = {
     "faults": ("fused", "async"),
     "guards": ("fused", "async"),
     "topology": ("fused", "async"),
+    "stream": ("async",),
 }
 
 
@@ -436,6 +437,15 @@ def _check_topology_engine(topology, engine: str) -> None:
         _require_engine("topology", engine,
                         "two-tier aggregation runs inside the fused rounds "
                         "and the async event loop")
+
+
+def _check_stream_engine(stream: Optional[StreamConfig], engine: str) -> None:
+    """Live traffic rides the async event loop's simulated clock: the
+    round-synchronous engines have no time axis for arrivals."""
+    if stream is not None:
+        _require_engine(
+            "stream", engine,
+            "traffic arrives on the async event loop's virtual clock")
 
 
 def _to_device(tree, device):
@@ -569,6 +579,15 @@ def run_federated_rounds(cfg: FederatedALConfig,
     edge→fog and fog→cloud bytes of the round).  The async engine's
     ``[G, ...]`` fog stack is returned as its slot-share mix.
 
+    ``stream=StreamConfig(...)`` (``"async"`` only) runs live traffic;
+    each report adds the event's ``offered``, ``stream_dropped``,
+    ``served``, ``serve_correct`` and ``escalated`` and the per-device
+    ``queue_depth``, and the pool is sized for ``rounds · escalate_k``
+    more acquisitions of ``k`` slots (the reference's sizing).  ``fleet=
+    FleetConfig(...)`` bundles ``comms``, ``hetero``, ``async_cfg``,
+    ``faults``, ``guards``, ``topology`` and ``stream``; the per-feature
+    options keep working, and mixing the forms warns (the options win).
+
     ``mesh`` (``launch.mesh.make_device_mesh`` / ``make_fog_mesh``) splits
     the fleet of the ``vmap``, ``legacy``, ``fused`` and ``async``
     engines over the ranks of its process group (``EdgeEngine(mesh=)``):
@@ -578,13 +597,21 @@ def run_federated_rounds(cfg: FederatedALConfig,
     ``classic`` engine does not read ``mesh``: every rank runs the whole
     fleet."""
     _check_engine(engine, ("vmap", "legacy", "classic", "fused", "async"))
+    fleet = fleet_mod.resolve_fleet(
+        fleet, "run_federated_rounds",
+        allowed=("comms", "hetero", "async_cfg", "faults", "guards",
+                 "topology", "stream"),
+        comms=comms, hetero=hetero, async_cfg=async_cfg, faults=faults,
+        guards=guards, topology=topology, stream=stream)
+    comms, hetero, async_cfg = fleet.comms, fleet.hetero, fleet.async_cfg
+    faults, guards = fleet.faults, fleet.guards
+    topology, stream = fleet.topology, fleet.stream
     _check_comms_engine(comms, "fused" if engine == "async" else engine)
-    reject_unported("run_federated_rounds", _UNPORTED_OPTIONS,
-                    stream=stream, fleet=fleet)
     _check_async_engine(async_cfg, engine, hetero)
     _check_hetero_engine(hetero, engine)
     _check_faults_engine(faults, guards, engine)
     _check_topology_engine(topology, engine)
+    _check_stream_engine(stream, engine)
     if engine == "async" and upload_fraction < 1.0:
         raise ValueError(
             "engine='async' decides arrivals from the latency model; "
@@ -608,8 +635,11 @@ def run_federated_rounds(cfg: FederatedALConfig,
         return params, reports
 
     if engine in ("fused", "async"):
+        # a stream labels up to escalate_k more samples a device an event:
+        # the reference sizes the pool for that many more acquisitions
+        extra = 0 if stream is None else rounds * stream.escalate_k
         eng = EdgeEngine(trainer, cfg, device_data, seed_data, test_set,
-                         total_acquisitions=cfg.acquisitions * rounds,
+                         total_acquisitions=cfg.acquisitions * rounds + extra,
                          device=device, mesh=mesh)
         if engine == "async":
             _, recs, params = eng.run_async(
@@ -617,7 +647,8 @@ def run_federated_rounds(cfg: FederatedALConfig,
                 async_cfg=(async_cfg if async_cfg is not None
                            else default_async(len(device_data))),
                 aggregation=cfg.aggregation, comms=comms, faults=faults,
-                guards=guards, hetero=hetero, topology=topology)
+                guards=guards, hetero=hetero, topology=topology,
+                stream=stream)
             if topology is not None:
                 # the event loop returns the [G, ...] fog stack: report its
                 # slot-share mix (the flat model at G = 1)
@@ -660,6 +691,10 @@ def run_federated_rounds(cfg: FederatedALConfig,
                 report.update(fog_sync=bool(rows["fog_sync"][t]),
                               beta=rows["beta"][t].tolist(),
                               group_accept=rows["group_accept"][t].tolist())
+            if stream is not None:
+                report.update({k: (rows[k][t].tolist() if k == "queue_depth"
+                                   else float(rows[k][t]))
+                               for k in stream_mod.STREAM_REPORT_KEYS})
             reports.append(report)
         attach_comms(rows["upload_mask"], rows["n_labeled"])
         if topology is not None:
@@ -821,6 +856,28 @@ def default_topology(num_devices: int,
                                      local_steps=DEFAULT_FOG_LOCAL_STEPS)
 
 
+def stream_config(num_devices: int = 64, *, seed: int = 0,
+                  **overrides) -> FederatedALConfig:
+    """Preset for the live-traffic regime: the small-budget fleet on
+    ``dirichlet_split`` shards on the async event loop, with requests
+    arriving on the simulated clock; pair with a ``StreamConfig``
+    (``default_stream(D)`` in ``scenario="stream"``)."""
+    return massive_config(num_devices, seed=seed, **overrides)
+
+
+def default_stream(num_devices: int) -> StreamConfig:
+    """The ``StreamConfig`` of ``scenario="stream"`` (the reference's):
+    about 2 requests a device a simulated second with a 4x hot / cold
+    skew, queues of 16, at most 8 arrivals an event, entropy thresholds
+    serving at most 0.6 nats and escalating the top 2 from 1.0 nats, and
+    a label drift of concentration 2 rotating once in 8 simulated
+    seconds.  The same for every fleet size."""
+    return StreamConfig(arrival_rate=2.0, rate_skew=4.0, queue_cap=16,
+                        max_arrivals=8, serve_threshold=0.6,
+                        escalate_threshold=1.0, escalate_k=2,
+                        drift_kappa=2.0, drift_period=8.0)
+
+
 # LM scenario defaults (scenario="lm"): token geometry of the synthetic
 # Markov source (data.lm) and of the reduced SSM adapter the preset builds.
 LM_VOCAB = 256
@@ -847,26 +904,101 @@ def lm_config(num_devices: int = 8, *, seed: int = 0,
     return massive_config(num_devices, seed=seed, **overrides)
 
 
-# scenario → (native engine, preset maker or None = explicit cfg, split,
-# default {hetero | faults | guards | topology: config, or a maker of it
-# from D} the caller's options override; the async engine's own default is
-# default_async(D))
-SCENARIOS: Dict[str, tuple] = {
-    "paper": ("vmap", None, "digits", {}),
-    "massive": ("fused", massive_config, "digits", {}),
-    "hetero": ("fused", hetero_config, "dirichlet",
-               {"hetero": DEFAULT_HETERO}),
-    "async": ("async", async_config, "dirichlet", {}),
-    "churn": ("fused", churn_config, "dirichlet",
-              {"faults": DEFAULT_FAULTS, "guards": DEFAULT_GUARDS}),
-    "fog": ("fused", fog_config, "dirichlet",
-            {"topology": default_topology}),
-    "lm": ("fused", lm_config, "lm", {}),
+@dataclass(frozen=True)
+class Scenario:
+    """One registered regime: ``description``; ``split`` ``"uniform"``
+    (``federated_split``), ``"dirichlet"`` (non-IID, alpha
+    ``HETERO_DIRICHLET_ALPHA``) or ``"lm"`` (``data.lm`` token shards);
+    ``engine`` the native engine an explicit ``engine=`` overrides;
+    ``config`` the preset maker of D (None: the caller passes ``cfg``);
+    ``dynamics(cfg)`` the default ``FleetConfig``, whose fields
+    ``run_experiment`` uses where the caller left them None."""
+
+    description: str
+    split: str
+    engine: str
+    config: Optional[Callable[..., FederatedALConfig]] = None
+    dynamics: Callable[[FederatedALConfig], FleetConfig] = \
+        lambda cfg: FleetConfig()
+
+
+SCENARIOS: Dict[str, Scenario] = {
+    "paper": Scenario(
+        description="paper Algorithm 1 on uniform shards (explicit cfg)",
+        split="uniform", engine="vmap"),
+    "massive": Scenario(
+        description="massively-distributed fleet, aggregation in-compile",
+        split="uniform", engine="fused", config=massive_config),
+    "hetero": Scenario(
+        description="straggler/staleness-aware heterogeneous fleet",
+        split="dirichlet", engine="fused", config=hetero_config,
+        dynamics=lambda cfg: FleetConfig(hetero=DEFAULT_HETERO)),
+    "async": Scenario(
+        description="rounds-free FedAsync/FedBuff event loop",
+        split="dirichlet", engine="async", config=async_config,
+        dynamics=lambda cfg: FleetConfig(
+            async_cfg=default_async(cfg.num_devices))),
+    "churn": Scenario(
+        description="device churn + fault injection + aggregation guards",
+        split="dirichlet", engine="fused", config=churn_config,
+        dynamics=lambda cfg: FleetConfig(faults=DEFAULT_FAULTS,
+                                         guards=DEFAULT_GUARDS)),
+    "fog": Scenario(
+        description="hierarchical two-tier edge×fog aggregation",
+        split="dirichlet", engine="fused", config=fog_config,
+        dynamics=lambda cfg: FleetConfig(
+            topology=default_topology(cfg.num_devices))),
+    "stream": Scenario(
+        description="live-traffic AL: serve/escalate cascade on the "
+                    "async event loop",
+        split="dirichlet", engine="async", config=stream_config,
+        dynamics=lambda cfg: FleetConfig(
+            async_cfg=default_async(cfg.num_devices),
+            stream=default_stream(cfg.num_devices))),
+    "lm": Scenario(
+        description="language-model fleet: SSM adapter, token shards, "
+                    "recurrent state excluded from Eq. 1",
+        split="lm", engine="fused", config=lm_config),
 }
-# the reference's other scenarios, and the ROADMAP item that ports each
-_UNPORTED_SCENARIOS = {
-    "stream": "Queue 1 item 14 (streaming and scenarios)",
-}
+
+
+def report_schema(scenario: str) -> Dict[str, frozenset]:
+    """The keys the reports of ``run_experiment(scenario=...)`` carry at
+    least (the reference's schema): ``{"round": ..., "repeat": ...}``,
+    frozensets for each round's (or event's) report and for a repeat's.
+    ``"paper"`` runs one round on the host, whose repeat report is its
+    round report."""
+    if scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}: use "
+                         + " | ".join(SCENARIOS))
+    scn = SCENARIOS[scenario]
+    if scn.config is None:
+        keys = frozenset({"initial_acc", "aggregated_acc", "aggregation",
+                          "device_histories", "comms"})
+        return {"round": keys, "repeat": keys}
+    fleet = scn.dynamics(scn.config(8))
+    round_keys = {"round", "aggregated_acc", "aggregation", "comms"}
+    repeat_keys = {"rounds", "comms"}
+    if scn.engine == "async":
+        round_keys |= {"sim_time", "arrivals", "timer_fired", "staleness"}
+        repeat_keys |= {"async"}
+    if fleet.hetero is not None:
+        round_keys |= {"staleness"}
+        repeat_keys |= {"staleness"}
+    if fleet.faults is not None:
+        round_keys |= {"live", "crashed", "dropped", "corrupted"}
+        repeat_keys |= {"faults"}
+    if fleet.guards is not None:
+        round_keys |= {"rejected", "clipped"}
+        repeat_keys |= {"faults"}
+    if fleet.topology is not None:
+        round_keys |= {"fog_sync", "beta", "group_accept", "tiers"}
+        repeat_keys |= {"tiers"}
+    if fleet.stream is not None:
+        round_keys |= set(stream_mod.STREAM_REPORT_KEYS)
+        repeat_keys |= {"stream"}
+    return {"round": frozenset(round_keys),
+            "repeat": frozenset(repeat_keys)}
 
 
 def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
@@ -877,7 +1009,8 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
                    hetero: Optional[HeteroConfig] = None, async_cfg=None,
                    faults: Optional[FaultConfig] = None,
                    guards: Optional[GuardConfig] = None, topology=None,
-                   stream=None, fleet=None, device=None):
+                   stream: Optional[StreamConfig] = None,
+                   fleet: Optional[FleetConfig] = None, device=None):
     """End-to-end experiment: data from seeds → federated split → rounds.
 
     ``scenario="paper"`` runs Algorithm 1 with an explicit ``cfg`` on
@@ -911,43 +1044,52 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
     with ``default_topology(num_devices)`` (G = D/16 in [2, 16], a cloud
     sync every ``DEFAULT_FOG_LOCAL_STEPS``-th round); each repeat adds a
     ``"tiers"`` summary (``comms.tier_telemetry``: per-tier bytes and
-    ``cross_tier_reduction``).  An explicit ``hetero=`` / ``async_cfg=`` /
-    ``faults=`` / ``guards=`` / ``topology=`` wins over the scenario's
-    default.  ``mesh`` (``launch.mesh``) splits the fleet over the ranks
-    of a process group, every rank calling with the same arguments; a
-    meshed run takes the multi-round drivers (``run_federated_rounds``),
-    as the reference's does."""
+    ``cross_tier_reduction``).  ``scenario="stream"`` runs
+    ``stream_config(num_devices)`` on the same shards on the async engine
+    with ``default_async(num_devices)`` and ``default_stream(num_devices)``
+    live traffic; each repeat adds the ``"async"`` summary and a
+    ``"stream"`` one (``stream.report_stream_telemetry``: offered load,
+    drops, serve accuracy, escalations, queue depths and the escalation
+    uplink bytes).  The scenarios are the ``SCENARIOS`` registry's, and
+    every option may come as its per-feature argument or bundled in
+    ``fleet=FleetConfig(...)``; the scenario's dynamics fill in only the
+    fields the caller left None.  ``mesh`` (``launch.mesh``) splits the
+    fleet over the ranks of a process group, every rank calling with the
+    same arguments; a meshed run takes the multi-round drivers
+    (``run_federated_rounds``), as the reference's does."""
     from repro_torch.data.digits import make_digit_dataset
     from repro_torch.data.federated_split import (dirichlet_split,
                                                   federated_split)
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
 
-    reject_unported("run_experiment", _UNPORTED_OPTIONS,
-                    stream=stream, fleet=fleet)
+    fleet = fleet_mod.resolve_fleet(
+        fleet, "run_experiment",
+        allowed=("comms", "hetero", "async_cfg", "faults", "guards",
+                 "topology", "stream"),
+        comms=comms, hetero=hetero, async_cfg=async_cfg, faults=faults,
+        guards=guards, topology=topology, stream=stream)
+    split = "uniform"
     if scenario is not None:
-        if scenario in _UNPORTED_SCENARIOS:
-            raise NotImplementedError(
-                f"scenario={scenario!r} is not ported yet: ROADMAP.md "
-                f"{_UNPORTED_SCENARIOS[scenario]}")
         if scenario not in SCENARIOS:
             raise ValueError(f"unknown scenario {scenario!r}: use "
                              + " | ".join(SCENARIOS))
-        native, preset, split, dynamics = SCENARIOS[scenario]
-        if preset is not None:
-            cfg = preset(num_devices) if cfg is None else cfg
+        scn = SCENARIOS[scenario]
+        split = scn.split
+        if scn.config is not None:
+            cfg = scn.config(num_devices) if cfg is None else cfg
             n_train = MASSIVE_SAMPLES_PER_DEVICE * cfg.num_devices
-        engine = native if engine is None else engine
-        # the scenario's dynamics fill in only what the caller left None
-        hetero = dynamics.get("hetero") if hetero is None else hetero
-        faults = dynamics.get("faults") if faults is None else faults
-        guards = dynamics.get("guards") if guards is None else guards
-        if topology is None and "topology" in dynamics:
-            topology = dynamics["topology"](cfg.num_devices)
-    else:
-        split = "digits"
+        engine = scn.engine if engine is None else engine
     if cfg is None:
-        raise ValueError("pass cfg or a preset scenario (massive | hetero | "
-                         "async | churn | fog | lm)")
+        presets = " | ".join(k for k, v in SCENARIOS.items()
+                             if v.config is not None)
+        raise ValueError(f"pass cfg or a preset scenario ({presets})")
+    if scenario is not None:
+        # the scenario's dynamics fill in only what the caller left None
+        fleet = scn.dynamics(cfg).merged(
+            **{f: getattr(fleet, f) for f in fleet_mod.FLEET_FIELDS})
+    comms, hetero, async_cfg = fleet.comms, fleet.hetero, fleet.async_cfg
+    faults, guards = fleet.faults, fleet.guards
+    topology, stream = fleet.topology, fleet.stream
     engine = "vmap" if engine is None else engine
     device = resolve_device(device)
 
@@ -982,9 +1124,7 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         if engine in ("fused", "async") or rounds > 1 or mesh is not None:
             _, round_reports = run_federated_rounds(
                 cfg_rep, shards, seed_set, test, rounds=rounds,
-                engine=engine, mesh=mesh, comms=comms, hetero=hetero,
-                async_cfg=async_cfg, faults=faults, guards=guards,
-                topology=topology, device=device)
+                engine=engine, mesh=mesh, fleet=fleet, device=device)
             rep_report = {
                 "rounds": round_reports,
                 "comms": comms_mod.experiment_telemetry(round_reports)}
@@ -994,6 +1134,9 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
             if engine == "async":
                 rep_report["async"] = async_mod.report_telemetry(
                     round_reports)
+            if stream is not None:
+                rep_report["stream"] = stream_mod.report_stream_telemetry(
+                    round_reports, image_shape=shards[0].images.shape[1:])
             if faults is not None or guards is not None:
                 rep_report["faults"] = faults_mod.report_summary(
                     round_reports)
@@ -1003,6 +1146,7 @@ def run_experiment(cfg: Optional[FederatedALConfig] = None, *,
         else:
             _check_faults_engine(faults, guards, engine)
             _check_topology_engine(topology, engine)
+            _check_stream_engine(stream, engine)
             _check_async_engine(async_cfg, engine, hetero)
             _, rep_report = run_federated_round(cfg_rep, shards, seed_set,
                                                 test, engine=engine,

@@ -444,9 +444,14 @@ def test_rejections(fleet):
     with pytest.raises(ValueError, match="validation set"):
         no_test.run_async(no_test.init_state(p0), 1, async_cfg=SYNC_LIMIT,
                           aggregation="weighted")
-    for name, item in (("stream", "item 14"), ("fleet", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            run(**{name: object()})
+    # live traffic and the fleet bundle run (test_torch_stream.py); a
+    # stream needs the async engine, as in the reference
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.stream import StreamConfig
+    _, recs, _ = run(stream=StreamConfig(arrival_rate=0.0))
+    assert not recs["offered"].any() and recs["queue_depth"].shape == (1, D)
+    _, recs, _ = eng.run_async(st, 1, fleet=FleetConfig(async_cfg=SYNC_LIMIT))
+    assert recs["arrivals"].tolist() == [D]
     # the fog topology runs (tests/port_torch/test_torch_topology.py)
     from repro_torch.core.topology import uniform_topology
     _, recs, fog = run(topology=uniform_topology(D, 2))
@@ -457,6 +462,10 @@ def test_rejections(fleet):
         fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,
                                  engine="fused", async_cfg=SYNC_LIMIT,
                                  device="cpu")
+    with pytest.raises(ValueError, match="requires engine='async'"):
+        fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,
+                                 engine="fused", device="cpu",
+                                 stream=StreamConfig())
     with pytest.raises(ValueError, match="hetero"):
         fed.run_federated_rounds(cfg, shards, seed_set, test, rounds=1,
                                  engine="async", device="cpu",

@@ -8,8 +8,8 @@ cases unsharded meanwhile.  The cases mirror the reference's mesh tests at
 their sizes (D = 8, ``tests/test_shard_engine.py``): a round and fused
 rounds with dropout on, the int8 codec with error feedback, buffering
 hetero, faults with guards, a chained and a checkpointed continuation,
-the async sync limit and a faulted async run, the drivers, and fog
-topologies on the 2-D mesh.  The children import no JAX.
+the async sync limit, a faulted async run and an async run with live
+traffic, the drivers, and fog topologies on the 2-D mesh.  The children import no JAX.
 
 Bars: parameters, fog models and float records within 1e-5, the
 reference's own mesh bar.  A split's partial sums add in another order
@@ -47,6 +47,7 @@ from repro_torch.core import federated as fed  # noqa: E402
 from repro_torch.core.async_engine import AsyncConfig  # noqa: E402
 from repro_torch.core.engine import EdgeEngine  # noqa: E402
 from repro_torch.core.faults import FaultConfig, GuardConfig  # noqa: E402
+from repro_torch.core.stream import StreamConfig  # noqa: E402
 from repro_torch.core.topology import uniform_topology  # noqa: E402
 from repro_torch.data.digits import make_digit_dataset  # noqa: E402
 from repro_torch.data.federated_split import federated_split  # noqa: E402
@@ -73,6 +74,11 @@ GUARDS = GuardConfig(policy="drop")
 SYNC_LIMIT = AsyncConfig(quorum=D, dist="det", mean_latency=0.0)
 SKEWED = AsyncConfig(quorum=3, timer=4.0, dist="exp", mean_latency=1.0,
                      latency_skew=10.0)
+# the traffic of test_torch_stream.py's case (a)
+TRAFFIC = StreamConfig(arrival_rate=20.0, rate_skew=4.0, burst=0.5,
+                       queue_cap=4, max_arrivals=4, serve_threshold=1.0,
+                       escalate_threshold=2.0, escalate_k=2, drift_kappa=2.0,
+                       drift_period=8.0)
 
 # test_torch_slice.py's RNG-free configuration (dropout 0, a window over
 # every shard), on 2 devices for the reference check
@@ -180,6 +186,14 @@ def case_async_sync(mesh):
 
 def case_async_faults(mesh):
     return _async(mesh, 2, async_cfg=SKEWED, faults=MESSY, guards=GUARDS)
+
+
+def case_async_stream(mesh):
+    """3 events with live traffic; the pool holds the escalations too:
+    3 · (R·k + 2) = 24 slots, 4 rounds' worth."""
+    eng, p0 = _engine(mesh, rounds=4)
+    return _run_items(eng, eng.run_async(eng.init_state(p0), 3,
+                                         async_cfg=SKEWED, stream=TRAFFIC))
 
 
 def case_async_fog(mesh):
@@ -306,6 +320,7 @@ GROUPS = {
         "chained": (case_chained, case_chained),
         "async_sync": (case_async_sync, case_async_sync),
         "async_faults": (case_async_faults, case_async_faults),
+        "async_stream": (case_async_stream, case_async_stream),
         "drivers": (case_drivers, case_drivers),
         "legacy": (case_legacy, case_legacy),
         "refusals": (case_refusals, None),
@@ -413,7 +428,8 @@ def _ranks(runs, group, case):
 EXACT_RECS = {"selected", "n_labeled", "upload_mask", "live", "crashed",
               "dropped", "corrupted", "rejected", "clipped", "accepted",
               "staleness", "fog_sync", "group_accept", "arrivals",
-              "sim_time", "timer_fired"}
+              "sim_time", "timer_fired", "offered", "stream_dropped",
+              "served", "serve_correct", "escalated", "queue_depth"}
 FIT_TREES = ("state/params", "state/opt_state", "state/residual",
              "state/pending", "fog/")
 
@@ -454,6 +470,7 @@ def _same_on_every_rank(ranks):
     ("device2", "round"), ("device2", "fused"), ("device2", "int8"),
     ("device2", "hetero"), ("device2", "faults"), ("device2", "chained"),
     ("device2", "async_sync"), ("device2", "async_faults"),
+    ("device2", "async_stream"),
     ("fog2x2", "fog_g1"), ("fog2x2", "fog_g2"), ("fog2x2", "async_fog")])
 def test_sharded_run_matches_unsharded(runs, group, case):
     """Every rank holds the same run, and it is the unsharded run's (for

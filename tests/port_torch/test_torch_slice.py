@@ -249,22 +249,36 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("call", ["comms", "engine", "scenario", "adapter"])
 def test_unported_options_raise(call):
+    """What the port does not run yet raises naming its ROADMAP item (the
+    MoE decoder); the options ported since run, or raise the reference's
+    ``ValueError`` where the reference refuses them."""
+    from repro_torch.core.comms import CommsConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.stream import StreamConfig
     cfg = FederatedALConfig(num_devices=2, **SLICE)
     shards = federated_split(make_digit_dataset(20, seed=0), 2, seed=0)
     seed_set, test = make_digit_dataset(6, seed=1), make_digit_dataset(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if call == "comms":   # comms, hetero, topology and the sharded
-            # device axis are ported; fleet configs wait
-            run_federated_rounds(cfg, shards, seed_set, test, engine="fused",
-                                 fleet=object(), device="cpu")
-        elif call == "engine":  # the async engine is ported; traffic waits
-            run_federated_rounds(cfg, shards, seed_set, test, engine="async",
-                                 stream=object(), device="cpu")
-        elif call == "scenario":  # hetero, churn and async are ported
-            run_experiment(scenario="stream", device="cpu")
-        else:  # the LM adapters are ported; the MoE decoder is not yet
-            from repro_torch.core.model_adapter import DecoderLMAdapter
-            from repro_torch.models.config import ModelConfig
+    rounds = lambda **kw: run_federated_rounds(cfg, shards, seed_set, test,
+                                               rounds=1, device="cpu", **kw)
+    if call == "comms":   # the fleet bundle carries the options
+        _, reps = rounds(engine="fused", fleet=FleetConfig(
+            comms=CommsConfig(compression="int8")))
+        assert reps[0]["comms"]["compression"] == "int8"
+        with pytest.raises(ValueError, match="does not support fleet"):
+            rounds(engine="fused", fleet=FleetConfig(live_mask=np.ones(2)))
+    elif call == "engine":  # live traffic runs on the async engine only
+        with pytest.raises(ValueError, match="requires engine='async'"):
+            rounds(engine="fused", stream=StreamConfig())
+        _, reps = rounds(engine="async", stream=StreamConfig())
+        assert len(reps[0]["queue_depth"]) == 2
+    elif call == "scenario":  # every scenario of the reference is ported
+        rep = run_experiment(cfg, scenario="stream", num_devices=2,
+                             n_test=10, device="cpu")[0]
+        assert rep["stream"]["events"] == 1 and "async" in rep
+    else:  # the LM adapters are ported; the MoE decoder is not yet
+        from repro_torch.core.model_adapter import DecoderLMAdapter
+        from repro_torch.models.config import ModelConfig
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, adapter=DecoderLMAdapter(ModelConfig(n_experts=4)),
                     device="cpu")
 
