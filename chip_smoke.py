@@ -13,8 +13,8 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    the LeNet paths' shapes (the classic engine's ``[T=16, W=200, C=10]``,
    the legacy engine's ``[1, 16, 200, 10]`` and the stream path's request
    queues ``[256, 4, 16, 10]`` among them), a ragged N,
-   C = 257 and bfloat16 input (atol 1e-5), at the LM fleet's
-   vocabularies C = 32768 and 50288 in float32 and bfloat16, one
+   C = 257 and bfloat16 input (atol 1e-5), at the LM fleets'
+   vocabularies C = 32768, 50288 and 73456 in float32 and bfloat16, one
    device's rows at C = 50288 and the ragged C = 50287
    (atol 1e-4: entropies near 10 summed over 5e4 classes in another
    order), and C = 4099 (1e-5); two calls bit-equal in every case; the
@@ -23,7 +23,8 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    devices × the 61,706 LeNet parameters, flat preweighted (the engine's
    mode), plus every other mode (atol 1e-5) and the compressed rounds'
    int8 and bfloat16 payloads in the engine's mode, and D = 8 copies of
-   the two LM trees (~129M and ~95M parameters), tree A also in bfloat16
+   the LM trees A and B (~129M and ~95M parameters) and D = 4 of tree C
+   (~251M), tree A also in bfloat16
    and int8, tree B also in int8 (path B's int8 uploads); two calls of
    each case must give equal bits; each case's kernel time against its
    own byte bound, and kernel, plain and ``torch.mv`` times in the
@@ -32,10 +33,15 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    times beside its byte bound;
 5. the flash-attention kernel (K3) against its plain version: every case
    of the JAX package's tests/test_kernels.py, the kernel's edges (GQA 8,
-   several query tiles, head dims 13, 80, 96 and 192) and the decoder
-   path's shape, in float32 (atol 2e-5) and bfloat16 (2e-2), two calls
-   bit-equal; kernel, plain and ``scaled_dot_product_attention`` times at
-   the decoder path's shape and at lm-100m's full 512-token context;
+   several query tiles, head dims 13, 80, 96 and 192), path B's shape,
+   path C's MLA shape (40 heads of 96, v zero-padded from 64) and
+   llama-3.2-vision's cross-attention (32 tokens against 1,600 image
+   tokens, 32 over 8 heads of 128, non-causal), in float32 (atol 2e-5)
+   and bfloat16 (2e-2), two calls bit-equal; kernel, plain and
+   ``scaled_dot_product_attention`` times at path B's shape, at lm-100m's
+   full 512-token context and at the MLA and cross-attention shapes,
+   and at the MLA shape the layer's own bound (v and o at dv 64) beside
+   the kernel's on the padded inputs;
 6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
    package's test shapes, the kernel's edges and the SSM path's shape
    (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
@@ -72,8 +78,13 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
 9. the massive main path: ``run_experiment(scenario="massive",
    num_devices=256, rounds=2)``;
 10. the LM paths, ``run_experiment(cfg, scenario="lm", rounds=2,
-    n_test=256)`` on 8 devices: A, one Mamba-2 block at mamba2-1.3b widths
-    (K1, K2, K4); B, the 12-layer lm-100m decoder (K1, K2, K3);
+    n_test=256)``: A, one Mamba-2 block at mamba2-1.3b widths on 8 devices
+    (K1, K2, K4); B, the 12-layer lm-100m decoder on 8 devices (K1, K2,
+    K3); C, MiniCPM3-4B at its published widths cut to one layer
+    (``repro_torch.configs.get_config("minicpm3-4b")``: MLA, 250,724,864
+    parameters a device) on 4 devices (K1 at C 73456, K2, K3 at 40 heads
+    of 96, every K3 call checked to be MLA's); each path's wall, peak
+    memory and launches;
 12. the host-aggregation engines at the paper's defaults:
     ``run_experiment(FederatedALConfig(), scenario="paper",
     engine="classic" | "legacy")``, K1 40 launches each, the round's
@@ -128,6 +139,18 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     in the candidate round, 1 on the queues), K2 one an accepting event,
     weights summing to 1 on those, conservation of requests (offered =
     dropped + served + escalated + still queued), the fog model finite;
+22. the decoder zoo (``repro_torch.configs``) at the JAX package's
+    ``reduced()`` sizes: ``decoder_forward`` of deepseek-v2 (MLA, MoE with
+    a shared expert, a dense first layer), arctic (MoE with the dense
+    residual), recurrentgemma (R, R, L and its tail), llama-3.2-vision
+    (gated cross-attention to image embeddings from the seed) and a
+    mamba2 decoder (M), two devices with their own weights, the same on
+    the card and on the CPU: logits within 1e-4, the per-device MoE aux
+    within 1e-5, every MoE layer's capacity drops equal, and its least
+    gap between the K-th and (K+1)-th router probability printed; then
+    one ``scenario="lm"`` round at 4 devices on the card for deepseek-v2
+    and recurrentgemma (dropout 0.1, ``impl="pallas"``): accuracy in [0,
+    1], weights summing to 1, the MoE fleet's aux positive;
 20. the sharded fleet (``launch.mesh``): (a) massive, fog, async and stream
     once more unsharded and once on a one-rank NCCL mesh
     (``make_device_mesh()``, the fog path ``make_fog_mesh(1, 1)``), each
@@ -143,15 +166,16 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
 11. run last: the host time of each path's data generation, then the
-    four paths of phases 8-10 and phases 15-17, 19 and 21 again under the
+    five paths of phases 8-10 and phases 15-17, 19 and 21 again under the
     CUDA activity tracer (wall, device-busy time, idle share, the
     kernels with the most device time, and the host seconds spent
     reading the trace), and phase 13's int8 run and phase 14 with host
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
-18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19, 21
-    and 20 (a), K2's segment-form launches of phase 19 apart, error, times,
-    bound), and last the ``{"ok": true, "device": ...}`` line.
+18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19,
+    21, 22 (the fleets) and 20 (a), K2's segment-form launches of phase 19
+    apart, error, times, bound), and last the ``{"ok": true, "device":
+    ...}`` line.
 
 Each phase's heading shows the seconds since the start.
 
@@ -399,10 +423,13 @@ def check_acquisition_kernel(torch, k1):
             "library_ms": None, "shapes": shapes}
 
 
-# phase 3, LM widths: the fused LM rounds' MC scoring call [D=8, T=4, W=32,
-# C] at both vocabularies, one device of it (fewer rows, so more slices a
-# row), and class counts that take scalar loads
-K1_LM_CASES = [("path B", (8, 4, 32, 32768), "float32"),
+# phase 3, LM widths: the fused LM rounds' MC scoring call [D, T=4, W=32,
+# C] at the three vocabularies (D = 8 on paths A and B, 4 on path C), one
+# device of it (fewer rows, so more slices a row), and class counts that
+# take scalar loads
+K1_LM_CASES = [("path C", (4, 4, 32, 73456), "float32"),
+               ("path C", (4, 4, 32, 73456), "bfloat16"),
+               ("path B", (8, 4, 32, 32768), "float32"),
                ("path B", (8, 4, 32, 32768), "bfloat16"),
                ("path A", (8, 4, 32, 50288), "float32"),
                ("path A", (8, 4, 32, 50288), "bfloat16"),
@@ -604,35 +631,44 @@ def check_segment_at_fog_shape(torch, k2, tree_leaves, tree, gen):
 
 
 def lm_path_configs(torch, fed):
-    """The two LM fleets of phase 10, as a user builds them: 8 devices of
-    ``lm_config``; A, one Mamba-2 block at mamba2-1.3b widths (float32,
-    dropout 0.1 for MC scoring); B, the lm-100m decoder.  Both route their
-    no-grad forwards through the kernels (``impl="pallas"``)."""
+    """The three LM fleets of phase 10, as a user builds them from
+    ``lm_config``: A, one Mamba-2 block at mamba2-1.3b widths (float32,
+    dropout 0.1 for MC scoring), 8 devices; B, the lm-100m decoder, 8
+    devices; C, MiniCPM3-4B at its published widths (MLA) cut to one
+    layer, float32, dropout 0.1, 4 devices (8 would not fit: the paths
+    peak near 68 bytes a fleet parameter).  All route their no-grad
+    forwards through the kernels (``impl="pallas"``)."""
     from dataclasses import replace
+    from repro_torch.configs import get_config
     from repro_torch.core.model_adapter import DecoderLMAdapter, SSMAdapter
-    from repro_torch.models.config import lm_100m, mamba2_1_3b
-    m = replace(mamba2_1_3b(), n_layers=1, dropout_rate=0.1,
+    from repro_torch.models.config import lm_100m
+    m = replace(get_config("mamba2-1.3b"), n_layers=1, dropout_rate=0.1,
+                param_dtype=torch.float32, dtype=torch.float32)
+    c = replace(get_config("minicpm3-4b"), n_layers=1, dropout_rate=0.1,
                 param_dtype=torch.float32, dtype=torch.float32)
     return {"A": fed.lm_config(8, adapter=SSMAdapter(m, impl="pallas")),
             "B": fed.lm_config(8, adapter=DecoderLMAdapter(lm_100m(),
-                                                           impl="pallas"))}
+                                                           impl="pallas")),
+            "C": fed.lm_config(4, adapter=DecoderLMAdapter(c, impl="pallas"))}
 
 
 def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
-    """Phase 4, LM trees: K2 over D = 8 stacked copies of each LM path's
-    parameter tree, over tree A in bfloat16 and in int8 with scales, and
-    over tree B in int8 with scales (path B's int8 uploads).  Returns
-    (worst error, times per case)."""
+    """Phase 4, LM trees: K2 over as many stacked copies of each LM path's
+    parameter tree as the path has devices (8 on A and B, 4 on C), over
+    tree A in bfloat16 and in int8 with scales, and over tree B in int8
+    with scales (path B's int8 uploads).  Returns (worst error, times per
+    case)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst, times = 0.0, {}
     for name, cfg in configs.items():
+        D = cfg.num_devices
         one = cfg.adapter.init(gen)
-        tree = tree_map(lambda a: torch.randn((8,) + tuple(a.shape),
+        tree = tree_map(lambda a: torch.randn((D,) + tuple(a.shape),
                                               generator=gen, device="cuda"),
                         one)
         del one
         N = sum(leaf[0].numel() for leaf in tree_leaves(tree))
-        w = torch.rand(8, generator=gen, device="cuda")
+        w = torch.rand(D, generator=gen, device="cuda")
         w = w / w.sum()
         got = k2.fused_aggregate(tree, w, normalize=False)
         torch.cuda.synchronize()
@@ -643,24 +679,25 @@ def check_aggregation_lm_trees(torch, k2, tree_leaves, tree_map, configs):
         del got
         if not err <= 1e-5:
             raise AssertionError(f"K2 LM tree {name}: max_abs_err {err}")
-        worst = max(worst, check_aggregation_narrow_tree(
-            torch, k2, tree_leaves, tree_map, name, tree, w, gen, times))
+        if name in ("A", "B"):
+            worst = max(worst, check_aggregation_narrow_tree(
+                torch, k2, tree_leaves, tree_map, name, tree, w, gen, times))
         ms, how, _ = timed(torch, lambda: k2.fused_aggregate(
             tree, w, normalize=False), "fused_aggregate_kernel")
         plain, _, _ = timed(torch, lambda: k2.fused_aggregate_plain(
             tree, w, normalize=False))
-        flat = torch.cat([leaf.reshape(8, -1) for leaf in tree_leaves(tree)],
+        flat = torch.cat([leaf.reshape(D, -1) for leaf in tree_leaves(tree)],
                          dim=1)
         del tree
         lib, _, _ = timed(torch, lambda: torch.mv(flat.t(), w))
         del flat
-        bound = bound_ms(8 * N * 4 + N * 4 + 8 * 4, 2 * 8 * N)
-        print(f"  K2 LM tree {name} (D=8 x N={N}): max_abs_err {err:.3e}; "
+        bound = bound_ms(D * N * 4 + N * 4 + D * 4, 2 * D * N)
+        print(f"  K2 LM tree {name} (D={D} x N={N}): max_abs_err {err:.3e}; "
               f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, torch.mv "
               f"{lib:.5f} ms, bound {bound:.5f} ms")
         worst = max(worst, err)
-        times[name] = {"N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bound}
+        times[name] = {"D": D, "N": N, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bound}
         torch.cuda.empty_cache()
     return worst, times
 
@@ -733,6 +770,15 @@ ATTN_CASES = [
 PATH_B_ATTN = (1024, 32, 32, 10, 5, 64, True, None, None)
 # lm-100m at its full context (max_seq_len 512): 64 sequences of 512 tokens
 LONG_ATTN = (64, 512, 512, 10, 5, 64, True, None, None)
+# path C's MC-scoring call: 4 devices x T=4 x W=32 sequences of 32 tokens
+# through MiniCPM3-4B's MLA, 40 heads of dn + dr = 96 with v zero-padded
+# from dv = 64 (nn/mla.py)
+PATH_C_ATTN = (512, 32, 32, 40, 40, 96, True, None, None)
+MLA_V_DIM = 64
+# llama-3.2-vision's gated cross-attention at its published widths: 32
+# text tokens against its 1,600 image tokens, 32 query heads over 8 KV
+# heads of 128, no causality; 32 sequences
+VISION_ATTN = (32, 32, 1600, 32, 8, 128, False, None, None)
 
 
 def causal_pairs(Sq, Skv, causal, window, q_offset):
@@ -746,31 +792,45 @@ def causal_pairs(Sq, Skv, causal, window, q_offset):
     return n
 
 
-def attn_bound(B, Sq, Skv, H, Hkv, d):
-    """K3's bound at one float32 causal shape: q, k, v read once, o written
-    once; 4·d operations a kept (query, key) pair.  Returns (bound ms,
-    bytes, flops, bound_by)."""
-    nbytes = 4 * (2 * B * Sq * H * d + 2 * B * Skv * Hkv * d)
-    flops = 4 * d * B * H * causal_pairs(Sq, Skv, True, None, 0)
+def attn_bound(B, Sq, Skv, H, Hkv, d, causal=True, dv=None):
+    """K3's bound at one float32 shape (causal at q_offset 0, or not): q,
+    k, v read once, o written once; 2·d + 2·dv operations a kept (query,
+    key) pair.  ``dv`` (default d) is the head dim of v and o: MLA's
+    layer needs only dv 64 of the 96 its padded v carries.  Returns
+    (bound ms, bytes, flops, bound_by)."""
+    dv = d if dv is None else dv
+    nbytes = 4 * (B * Sq * H * (d + dv) + B * Skv * Hkv * (d + dv))
+    flops = (2 * d + 2 * dv) * B * H * causal_pairs(Sq, Skv, causal, None, 0)
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
           else "operations")
     return bound_ms(nbytes, flops), nbytes, flops, by
 
 
+def attn_inputs(torch, gen, case, dtype=None):
+    """Random q, k, v of one case (float32 unless ``dtype``); path C's v
+    zero-padded from dv as the MLA layer pads it."""
+    B, Sq, Skv, H, Hkv, d = case[:6]
+    dtype = dtype or torch.float32
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in ((B, Sq, H, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d)))
+    if case == PATH_C_ATTN:
+        v[..., MLA_V_DIM:] = 0
+    return q, k, v
+
+
 def check_flash_attention_kernel(torch, k3):
     """Phase 5: K3 vs its plain version, two calls bit-equal; kernel,
-    plain and ``scaled_dot_product_attention`` times at path B's shape and
-    at 512 tokens.  Returns the kernels-line entry (path B's numbers, both
-    shapes under "shapes")."""
+    plain and ``scaled_dot_product_attention`` times at path B's shape, at
+    512 tokens, at path C's MLA shape and at the vision cross-attention
+    shape.  Returns the kernels-line entry (path B's numbers, every timed
+    shape under "shapes")."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
-             for c in ATTN_CASES + [PATH_B_ATTN]]
+             for c in ATTN_CASES + [PATH_B_ATTN, PATH_C_ATTN, VISION_ATTN]]
     for case, dtype in cases:
         B, Sq, Skv, H, Hkv, d, causal, window, softcap = case
-        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
-                   for s in ((B, Sq, H, d), (B, Skv, Hkv, d),
-                             (B, Skv, Hkv, d)))
+        q, k, v = attn_inputs(torch, gen, case, dtype)
         kw = dict(causal=causal, window=window, softcap=softcap,
                   q_offset=Skv - Sq if causal else 0)
         got = k3.flash_attention(q, k, v, **kw)
@@ -789,27 +849,40 @@ def check_flash_attention_kernel(torch, k3):
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = []
-    for name, case in (("path B", PATH_B_ATTN), ("512 tokens", LONG_ATTN)):
-        B, Sq, Skv, H, Hkv, d = case[:6]
-        q = torch.randn((B, Sq, H, d), generator=gen, device="cuda")
-        k, v = (torch.randn((B, Skv, Hkv, d), generator=gen, device="cuda")
-                for _ in range(2))
-        ms, how, host = timed(torch, lambda: k3.flash_attention(q, k, v),
-                              "flash_attention_kernel")
-        plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(q, k, v))
+    for name, case in (("path B", PATH_B_ATTN), ("512 tokens", LONG_ATTN),
+                       ("path C (MLA)", PATH_C_ATTN),
+                       ("vision cross-attention", VISION_ATTN)):
+        B, Sq, Skv, H, Hkv, d, causal = case[:7]
+        q, k, v = attn_inputs(torch, gen, case)
+        ms, how, host = timed(torch, lambda: k3.flash_attention(
+            q, k, v, causal=causal), "flash_attention_kernel")
+        plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(
+            q, k, v, causal=causal))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        lib, _, _ = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+        lib, _, _ = timed(torch, lambda: sdpa(qt, kt, vt, is_causal=causal,
                                               enable_gqa=True))
-        bound, nbytes, flops, by = attn_bound(B, Sq, Skv, H, Hkv, d)
-        print(f"  K3 {name} q [{B}, {Sq}, {H}, {d}] f32 causal, {how}: "
+        bound, nbytes, flops, by = attn_bound(B, Sq, Skv, H, Hkv, d, causal)
+        mode = "causal" if causal else f"non-causal, Skv {Skv}, Hkv {Hkv}"
+        print(f"  K3 {name} q [{B}, {Sq}, {H}, {d}] f32 {mode}, {how}: "
               f"kernel {ms:.5f} ms, plain {plain:.5f} ms, "
               f"scaled_dot_product_attention {lib:.5f} ms, bound "
               f"{bound:.5f} ms by {by} ({nbytes / 1e9:.4f} GB, "
               f"{flops / 1e9:.2f} GFLOP; {bound / ms:.3f} of it); wrapper "
               f"per call with host overhead {host:.5f} ms")
-        shapes.append({"shape": list(case[:6]), "ms": ms, "how": how,
-                       "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                       "library_ms": lib})
+        entry = {"case": name, "shape": list(case[:6]), "causal": causal,
+                 "ms": ms, "how": how, "plain_ms": plain, "bound_ms": bound,
+                 "bound_by": by, "library_ms": lib}
+        if case == PATH_C_ATTN:
+            # the bound above is the kernel's, on v padded to d; the MLA
+            # layer itself reads v and writes o at dv only
+            lb, lbytes, lflops, lby = attn_bound(B, Sq, Skv, H, Hkv, d,
+                                                 causal, dv=MLA_V_DIM)
+            print(f"  K3 {name}: the layer's bound at dv {MLA_V_DIM} "
+                  f"{lb:.5f} ms by {lby} ({lbytes / 1e9:.4f} GB, "
+                  f"{lflops / 1e9:.2f} GFLOP; {lb / ms:.3f} of the kernel's "
+                  f"time); the padding costs {bound - lb:.5f} ms of bound")
+            entry.update(layer_bound_ms=lb, layer_bound_by=lby)
+        shapes.append(entry)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
@@ -977,29 +1050,64 @@ def check_small_lm_rounds_against_cpu(torch, fed, interop):
                                  f"{err} > {tol}")
 
 
+# path C's parameters a device: MiniCPM3-4B's embedding (73456 x 2560,
+# tied), one layer at its published widths (MLA 13,520,384 with its norm,
+# SwiGLU 49,154,560 with its norm) and the final norm; the JAX package's
+# decoder_init gives the same count (jax.eval_shape, on the CPU)
+PATH_C_PARAMS = 250_724_864
+
+
+class AttentionShapes:
+    """While active, the ``(H, Hkv, d)`` of every call the attention layers
+    make to K3's wrapper (``impl="pallas"``), counted in ``self.seen``; the
+    wrapper itself runs, and counts its launches, as always."""
+
+    def __init__(self):
+        from repro_torch.nn import attention
+        self.module, self.seen = attention, {}
+
+    def __enter__(self):
+        self.fn = self.module.flash_attention
+
+        def record(q, k, v, **kw):
+            key = (q.shape[2], k.shape[2], q.shape[3])
+            self.seen[key] = self.seen.get(key, 0) + 1
+            return self.fn(q, k, v, **kw)
+        self.module.flash_attention = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention = self.fn
+
+
 def run_lm_path(torch, fed, name, cfg, kernels):
     """Phase 10: one LM path through ``run_experiment``; returns (wall s,
-    launches)."""
+    launches, peak GiB, K3's (H, Hkv, d) calls)."""
     from repro_torch.tree import tree_leaves
     n_params = sum(a.numel() for a in tree_leaves(cfg.adapter.init(
         torch.Generator(device="cuda").manual_seed(0))))
+    if name == "C" and n_params != PATH_C_PARAMS:
+        raise AssertionError(f"path C: {n_params} parameters a device, not "
+                             f"{PATH_C_PARAMS}")
     for k in kernels.values():
         k.launches = 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rounds = fed.run_experiment(cfg, scenario="lm", rounds=2,
-                                n_test=256)[0]["rounds"]
+    with AttentionShapes() as shapes:
+        rounds = fed.run_experiment(cfg, scenario="lm", rounds=2,
+                                    n_test=256)[0]["rounds"]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: mod.launches for k, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
     accs = [r["aggregated_acc"] for r in rounds]
     print(f"  path {name}: {n_params} params per device x "
           f"{cfg.num_devices} devices; "
           f"aggregated_acc per round {accs}; wall {wall:.3f} s; launches "
-          f"{launches}; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"{launches}; K3 calls by (H, Hkv, head dim) {shapes.seen}; peak "
+          f"device memory {peak:.2f} GiB "
           f"({torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved, "
           f"allocator {os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
     for r in rounds:
@@ -1008,7 +1116,166 @@ def run_lm_path(torch, fed, name, cfg, kernels):
         if not (abs(wsum - 1.0) < 1e-4 and acc == acc and 0.0 <= acc <= 1.0):
             raise AssertionError(f"path {name} round {r['round']}: weights "
                                  f"sum {wsum}, acc {acc}")
-    return wall, launches
+    return wall, launches, peak, shapes.seen
+
+
+# phase 22: the decoder zoo's families at the JAX package's reduced()
+# sizes (the published widths do not fit a fleet on one card)
+ZOO_FAMILIES = (("deepseek-v2", "deepseek-v2-236b"),
+                ("arctic", "arctic-480b"),
+                ("recurrentgemma", "recurrentgemma-9b"),
+                ("llama-vision", "llama-3.2-vision-11b"),
+                ("mamba2", "mamba2-1.3b"))
+# leaves that start at zero weight (MLA's q_norm / kv_norm and the Mamba
+# block's gated norm, applied with zero_centered=False; the gates of the
+# cross-attention layers): drawn from the seed so the outputs are not 0
+ZERO_START = ("q_norm", "kv_norm", "norm", "gate_attn", "gate_ffn")
+
+
+class MoERecords:
+    """While active, every MoE layer call of the decoder records its
+    capacity drops a device and the least gap, over its tokens, between
+    the K-th and (K+1)-th router probability (expert choice is an integer
+    decision: a small gap could flip between card and CPU)."""
+
+    def __init__(self, torch):
+        from repro_torch.models import decoder
+        from repro_torch.nn import moe
+        self.torch, self.decoder, self.moe, self.calls = torch, decoder, moe, []
+
+    def __enter__(self):
+        torch, moe = self.torch, self.moe
+
+        def record(params, x, *, cfg, impl="sort"):
+            _, probs, _, experts = moe.route(params, x, cfg)
+            top = torch.sort(probs, dim=-1, descending=True)[0]
+            K, E = cfg.experts_top_k, cfg.n_experts
+            gap = float((top[..., K - 1] - top[..., K]).min())
+            # a group (device, row) drops what an expert gets past C
+            load = torch.nn.functional.one_hot(experts, E).sum(dim=(2, 3))
+            drops = (load - moe.capacity(cfg, x.shape[2])).clamp(min=0)
+            self.calls.append((gap, drops.sum(dim=(1, 2)).tolist()))
+            return moe.moe_apply(params, x, cfg=cfg, impl=impl)
+        self.decoder.moe_apply = record
+        return self
+
+    def __exit__(self, *exc):
+        self.decoder.moe_apply = self.moe.moe_apply
+
+
+def zoo_params(torch, cfg, seed, D=2):
+    """D models of ``cfg`` stacked, on the CPU, from ``seed``, with the
+    ``ZERO_START`` leaves drawn uniform in [0.5, 1.5]."""
+    from repro_torch.models.decoder import decoder_init
+    from repro_torch.tree import tree_map, tree_map_with_path
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_map(lambda *a: torch.stack(a),
+                      *(decoder_init(cfg, gen) for _ in range(D)))
+
+    def draw(path, a):
+        keys = path.split("/")
+        if keys[-1] in ZERO_START or (keys[-1] == "scale"
+                                      and keys[-2] in ZERO_START):
+            return 0.5 + torch.rand(a.shape, generator=gen)
+        return a
+    return tree_map_with_path(draw, params)
+
+
+def check_zoo_against_cpu(torch):
+    """Phase 22 (a): ``decoder_forward`` of each zoo family at its
+    ``reduced()`` config, two devices with their own weights, the same
+    weights and tokens (and image embeddings) on the card and on the CPU,
+    ``impl="pallas"`` (K3 on the card, its plain version on the CPU):
+    logits within 1e-4, the per-device aux within 1e-5, the capacity
+    drops of every MoE layer equal.  Returns a summary per family."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import decoder_forward
+    from repro_torch.tree import tree_map
+    out = {}
+    for name, arch in ZOO_FAMILIES:
+        cfg = get_config(arch).reduced()
+        params = zoo_params(torch, cfg, 22)
+        r = np.random.default_rng(22)
+        toks = torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 4, 32))
+                                .astype(np.int32))
+        img = (torch.from_numpy(r.normal(size=(
+            2, 4, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+            if "X" in cfg.attn_pattern else None)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            with MoERecords(torch) as rec:
+                logits, aux = decoder_forward(
+                    tree_map(lambda a: a.to(dev), params), toks.to(dev),
+                    cfg=cfg, image_embeds=None if img is None else img.to(dev),
+                    impl="pallas")
+            res[dev] = (logits.cpu(), aux.cpu(), rec.calls)
+        (lg, ag, mg), (lc, ac, mc) = res["cuda"], res["cpu"]
+        err = float((lg - lc).abs().max())
+        aux_err = float((ag - ac).abs().max())
+        drops_g, drops_c = [m[1] for m in mg], [m[1] for m in mc]
+        gaps = (min((m[0] for m in mg), default=None),
+                min((m[0] for m in mc), default=None))
+        print(f"  {name} ({arch} reduced: layers {cfg.n_layers}, pattern "
+              f"{''.join(cfg.attn_pattern)}, d_model {cfg.d_model}, experts "
+              f"{cfg.n_experts}): logits {tuple(lg.shape)} max_abs_err "
+              f"{err:.3e}; aux card {ag.tolist()} CPU {ac.tolist()} "
+              f"(err {aux_err:.3e}); MoE layers {len(mg)}: capacity drops "
+              f"card {drops_g} CPU {drops_c}, least K-th to (K+1)-th router "
+              f"gap card {gaps[0]} CPU {gaps[1]}")
+        if not (err <= 1e-4 and aux_err <= 1e-5 and drops_g == drops_c
+                and bool(torch.isfinite(lg).all())):
+            raise AssertionError(f"zoo {name}: card vs CPU logits {err}, aux "
+                                 f"{aux_err}, drops {drops_g} vs {drops_c}")
+        out[name] = {"logits_err": err, "aux_err": aux_err,
+                     "aux": ag.tolist(), "drops": drops_g,
+                     "least_router_gap": gaps[1]}
+    return out
+
+
+def run_zoo_fleets(torch, fed, reset, read):
+    """Phase 22 (b): one ``scenario="lm"`` round at 4 devices on the card
+    for deepseek-v2 and recurrentgemma at ``reduced()``, dropout 0.1,
+    ``impl="pallas"``: accuracy finite in [0, 1], weights summing to 1;
+    the MoE fleet's fog model gives a positive aux on test tokens.
+    Returns {name: (wall s, launches)}."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.core.model_adapter import DecoderLMAdapter
+    from repro_torch.data.lm import make_lm_dataset
+    from repro_torch.models.decoder import decoder_forward
+    from repro_torch.tree import tree_map
+    out = {}
+    for name, arch in (("deepseek-v2", "deepseek-v2-236b"),
+                       ("recurrentgemma", "recurrentgemma-9b")):
+        mcfg = replace(get_config(arch).reduced(), dropout_rate=0.1)
+        cfg = fed.lm_config(4, adapter=DecoderLMAdapter(mcfg, impl="pallas"))
+        reset()
+        t0 = time.perf_counter()
+        with FogModels(fed) as fog:
+            rep = fed.run_experiment(cfg, scenario="lm", rounds=1,
+                                     n_test=256)[0]
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, read()
+        fog.check_finite(torch, f"zoo fleet {name}")
+        r = rep["rounds"][0]
+        wsum, acc = sum(r["aggregation"]["weights"]), r["aggregated_acc"]
+        toks = torch.from_numpy(make_lm_dataset(
+            64, seq_len=32, vocab=mcfg.vocab_size, seed=5,
+            stream_seed=0).images).to("cuda")
+        _, aux = decoder_forward(tree_map(lambda a: a[None], fog.models[-1]),
+                                 toks[None], cfg=mcfg, impl="pallas")
+        print(f"  fleet {name} (4 devices, 1 round): aggregated_acc {acc}, "
+              f"weights sum {wsum:.6f}, fog model's aux on 64 test "
+              f"sequences {float(aux[0]):.6f}; wall {wall:.3f} s; launches "
+              f"{launches}")
+        if not (acc == acc and 0.0 <= acc <= 1.0 and abs(wsum - 1.0) < 1e-4):
+            raise AssertionError(f"zoo fleet {name}: acc {acc}, weights sum "
+                                 f"{wsum}")
+        if (mcfg.n_experts > 0) != (float(aux[0]) > 0.0):
+            raise AssertionError(f"zoo fleet {name}: aux {float(aux[0])}")
+        out[name] = (wall, launches)
+    return out
 
 
 def check_small_round_against_cpu(torch, fed, interop, lenet):
@@ -2607,16 +2874,20 @@ def main() -> int:
             raise AssertionError(f"round {r['round']}: weights sum {wsum}, "
                                  f"acc {r['aggregated_acc']}")
 
-    phase("phase 10: LM paths (scenario='lm', 8 devices, 2 rounds, "
-          "n_test 256)")
-    lm_walls, lm_launches = {}, {}
-    for name, own in (("A", "ssd_intra_chunk"), ("B", "flash_attention")):
+    phase("phase 10: LM paths (scenario='lm', 2 rounds, n_test 256; A and "
+          "B on 8 devices, C on 4)")
+    lm_walls, lm_launches, lm_peaks = {}, {}, {}
+    for name, own in (("A", "ssd_intra_chunk"), ("B", "flash_attention"),
+                      ("C", "flash_attention")):
         reset()
-        lm_walls[name], lm_launches[name] = run_lm_path(
-            torch, fed, name, configs[name], kernels)
+        lm_walls[name], lm_launches[name], lm_peaks[name], k3_shapes = \
+            run_lm_path(torch, fed, name, configs[name], kernels)
         for k in ("acquisition_scores", "fused_aggregation", own):
             if lm_launches[name][k] < 1:
                 raise AssertionError(f"path {name} launched no {k} kernel")
+        if name == "C" and set(k3_shapes) != {(40, 40, 96)}:
+            raise AssertionError(f"path C: K3 calls {k3_shapes}, not only "
+                                 "MLA's 40 heads of 96")
         torch.cuda.empty_cache()
 
     phase("phase 12: host-aggregation engines at the paper's defaults")
@@ -2649,6 +2920,11 @@ def main() -> int:
     phase("phase 21: stream path (scenario='stream', D=256, 8 events)")
     stream_path = run_stream_path(torch, fed, comms, reset, read, first)
     torch.cuda.empty_cache()
+    phase("phase 22: the decoder zoo at reduced() sizes, card vs CPU, and "
+          "two 4-device fleets")
+    zoo = check_zoo_against_cpu(torch)
+    zoo_fleets = run_zoo_fleets(torch, fed, reset, read)
+    torch.cuda.empty_cache()
     phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
           "async, stream), then massive split over two processes on gloo")
     sharded = run_sharded_paths(torch, fed, reset, read, first)
@@ -2665,12 +2941,13 @@ def main() -> int:
     print(f"  paper data generation (host numpy): "
           f"{time.perf_counter() - t0:.3f} s")
     from repro_torch.data.lm import lm_federated_split, make_lm_dataset
-    for name in ("A", "B"):
+    for name in ("A", "B", "C"):
         vocab = configs[name].adapter.config.vocab_size
         t0 = time.perf_counter()
         make_lm_dataset(256, seq_len=32, vocab=vocab, seed=5, stream_seed=0)
         make_lm_dataset(20, seq_len=32, vocab=vocab, seed=11, stream_seed=0)
-        lm_federated_split(8, 40, seq_len=32, vocab=vocab, seed=0)
+        lm_federated_split(configs[name].num_devices, 40, seq_len=32,
+                           vocab=vocab, seed=0)
         print(f"  path {name} data generation (host numpy, vocab {vocab}): "
               f"{time.perf_counter() - t0:.3f} s")
     profiled = (
@@ -2681,6 +2958,8 @@ def main() -> int:
         ("A", lambda: fed.run_experiment(configs["A"], scenario="lm",
                                          rounds=2, n_test=256)),
         ("B", lambda: fed.run_experiment(configs["B"], scenario="lm",
+                                         rounds=2, n_test=256)),
+        ("C", lambda: fed.run_experiment(configs["C"], scenario="lm",
                                          rounds=2, n_test=256)),
         ("hetero", lambda: fed.run_experiment(
             scenario="hetero", num_devices=256, rounds=3)),
@@ -2730,6 +3009,7 @@ def main() -> int:
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
                     hetero[1], churn[1], async_path[1], stream_path[1],
+                    *(v[1] for v in zoo_fleets.values()),
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -2739,7 +3019,8 @@ def main() -> int:
     k2_entry["segment_launches"] = sum(
         run.get("fused_aggregation_segment", 0) for run in all_launches)
     print(json.dumps({"paper_s": paper_s, "massive_s": massive_s,
-                      "lm_s": lm_walls, "paper_launches": paper_launches,
+                      "lm_s": lm_walls, "lm_peak_gib": lm_peaks,
+                      "paper_launches": paper_launches,
                       "massive_launches": massive_launches,
                       "lm_launches": lm_launches,
                       "host_engines": host, "massive_codecs": codecs,
@@ -2759,7 +3040,9 @@ def main() -> int:
                       "stream": {"wall_s": stream_path[0],
                                  "launches": stream_path[1],
                                  "telemetry": stream_path[2]},
-                      "sharded": sharded,
+                      "sharded": sharded, "zoo": zoo,
+                      "zoo_fleets": {k: {"wall_s": w, "launches": n}
+                                     for k, (w, n) in zoo_fleets.items()},
                       "k2_lm_trees": k2_lm,
                       "total_s": time.perf_counter() - t_start}))
     print(f"card: {card}")

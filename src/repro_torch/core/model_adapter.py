@@ -117,9 +117,14 @@ class LeNetAdapter(ModelAdapter):
 # ======================================================== decoder LM (models/)
 @dataclass(frozen=True)
 class DecoderLMAdapter(ModelAdapter):
-    """Decoder-only LM (``models.decoder``).  One sample is an int32 token
-    sequence ``[S]``; the logits are the next-token distribution at the
-    final position.  MC scoring needs ``config.dropout_rate > 0``."""
+    """Decoder-only LM from the model zoo (``models.decoder``: dense, MoE,
+    MLA, the RG-LRU hybrid and Mamba-2 layers).  One sample is an int32
+    token sequence ``[S]``; the logits are the next-token distribution at
+    the final position.  MC scoring needs ``config.dropout_rate > 0``.
+    ``loss`` adds each device's MoE auxiliary loss ``[D]`` to its NLL, as
+    the reference adds its per-device scalar inside the engine's
+    ``vmap``.  Cross-attention (``X``) layers need ``image_embeds``, which
+    the adapter does not carry: a forward raises ``ValueError``."""
 
     config: ModelConfig = field(default_factory=ModelConfig)
     impl: str = "auto"
@@ -127,7 +132,7 @@ class DecoderLMAdapter(ModelAdapter):
     eval_rows: ClassVar[int] = 4096
 
     def __post_init__(self):
-        check_supported(self.config)
+        check_supported(self.config, impl=self.impl)
 
     def init(self, generator):
         return decoder_init(self.config, generator)

@@ -1,10 +1,10 @@
 """Unified model configuration (the port of ``repro.models.config``).
 
 One frozen dataclass with the JAX package's fields, defaults and
-``reduced()`` rule; dtypes are torch dtypes.  The published widths that
-the LM fleet runs at are plain constructors here (``mamba2_1_3b``,
-``lm_100m``): the JAX package keeps them in ``repro/configs/*.py`` and
-``examples/``, which import ``jax.numpy``.
+``reduced()`` rule; dtypes are torch dtypes.  The published configs are
+in ``repro_torch.configs`` (``get_config``); ``lm_100m`` here is the
+repository's own scale target from the JAX package's ``examples/``,
+which LM path B builds.
 """
 from __future__ import annotations
 
@@ -154,19 +154,6 @@ class ModelConfig:
             changes.update(n_image_tokens=16,
                            n_layers=max(n_layers, len(self.attn_pattern)))
         return replace(self, **changes)
-
-
-def mamba2_1_3b() -> ModelConfig:
-    """mamba2-1.3b [arXiv:2405.21060]: 48 SSD blocks, d_model 2048,
-    ssm_state 128, head_dim 64, expand 2, vocab 50280 padded to 50288, tied
-    (``repro/configs/mamba2_13b.py``, bf16 as published)."""
-    return ModelConfig(
-        name="mamba2-1.3b", family="ssm", n_layers=48, d_model=2048,
-        n_heads=1, n_kv_heads=1, d_ff=0, vocab_size=50288,
-        attn_pattern=("M",), ssm_state_dim=128, ssm_head_dim=64,
-        ssm_n_groups=1, ssm_expand=2, ssm_conv_width=4, ssm_chunk=256,
-        tie_embeddings=True, max_seq_len=524288,
-        param_dtype=torch.bfloat16, dtype=torch.bfloat16)
 
 
 def lm_100m() -> ModelConfig:

@@ -1,5 +1,5 @@
 """Decoder-only LM over a leading device axis (``repro.models.decoder``
-ported for dense global and sliding-window attention layers).
+ported: every layer type, without the decode caches).
 
 The layer stack is the reference's: unrolled head layers
 (``first_k_dense``), a repeating pattern unit (config ``attn_pattern``)
@@ -9,11 +9,16 @@ JAX package leaf by leaf; stacked over devices a unit leaf is ``[D, U,
 ...]``.  The reference scans over units with ``jax.lax.scan``; here the
 scan is a Python loop.
 
-Ported layer types: ``S`` (global attention) and ``L`` (sliding window),
-each with a dense MLP (SwiGLU, GeGLU or GELU), optional post-norms,
-``residual_scale``, ``scale_embeddings``, the final logit softcap and an
-untied unembedding.  MoE, MLA, the ``R`` / ``M`` / ``X`` layers and the
-decode caches raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 16).
+Layer types: ``S`` (global attention) and ``L`` (sliding window), GQA
+or MLA (``use_mla``); ``R`` (Griffin's RG-LRU block); ``M`` (a Mamba-2
+block on the plain SSD, no MLP); ``X`` (gated cross-attention to
+``image_embeds``, with a ``tanh(gate_ffn)``-gated MLP).  The channel mix
+is a dense MLP (SwiGLU, GeGLU or GELU) or, with ``n_experts > 0``, MoE
+(not in the ``first_k_dense`` head layers, never in ``X`` layers).  Also
+optional post-norms, ``residual_scale``, ``scale_embeddings``, the final
+logit softcap and an untied unembedding.  The decode caches and the
+``"blockwise"`` attention core raise ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 16).
 
 Dropout sits where the reference puts it: after the attention branch and
 after the MLP branch of every layer, active when ``deterministic`` is
@@ -31,31 +36,38 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.nn import embeddings as emb
 from repro_torch.nn import init as initializers
 from repro_torch.nn import layers as L
-from repro_torch.nn.attention import gqa_apply, gqa_init
+from repro_torch.nn.attention import (cross_attn_apply, cross_attn_init,
+                                      gqa_apply, gqa_init)
+from repro_torch.nn.mla import mla_apply, mla_init
+from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norms import (layernorm_apply, layernorm_init,
                                   rmsnorm_apply, rmsnorm_init)
+from repro_torch.nn.rglru import recurrent_block_apply, recurrent_block_init
+from repro_torch.nn.ssm import mamba2_apply, mamba2_init
 from repro_torch.tree import tree_map
 
 _UNPORTED = "ROADMAP.md Queue 1 item 16"
-LAYER_TYPES = ("S", "L")
+LAYER_TYPES = ("S", "L", "R", "M", "X")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for the decoder families the port does
-    not run yet."""
+def check_supported(cfg: ModelConfig, *, impl: str = "auto",
+                    caches=None, decode: bool = False,
+                    collect_prefill_caches: bool = False) -> None:
+    """Raise for what the port does not run yet: an unknown layer type
+    (``ValueError``, as the reference), and (``NotImplementedError``) the
+    decode caches and the ``"blockwise"`` attention core."""
     bad = [t for t in cfg.attn_pattern if t not in LAYER_TYPES]
-    what = None
-    if cfg.n_experts > 0:
-        what = "mixture-of-experts layers"
-    elif cfg.use_mla:
-        what = "multi-head latent attention"
-    elif bad:
-        what = {"R": "RG-LRU recurrent layers", "M": "Mamba-2 decoder layers",
-                "X": "cross-attention layers"}.get(bad[0],
-                                                   f"layer type {bad[0]!r}")
-    if what is not None:
+    if bad:
+        raise ValueError(f"unknown decoder layer type {bad[0]!r}: use "
+                         + " | ".join(LAYER_TYPES))
+    if caches is not None or decode or collect_prefill_caches:
         raise NotImplementedError(
-            f"decoder with {what} is not ported yet: {_UNPORTED}")
+            f"decoder KV caches (prefill and decode) are not ported yet: "
+            f"{_UNPORTED}")
+    if impl == "blockwise":
+        raise NotImplementedError(
+            f"attention impl='blockwise' (the XLA scan over KV blocks) is not "
+            f"ported yet: {_UNPORTED}")
 
 
 def _norm_init(cfg, device, dim=None):
@@ -71,30 +83,47 @@ def _norm_apply(cfg, p, x):
 
 
 # ================================================================ layers
-def layer_init(cfg: ModelConfig, ltype: str, generator: torch.Generator):
-    """One ``S`` or ``L`` layer's params."""
-    if ltype not in LAYER_TYPES:
-        check_supported(cfg)
-        raise ValueError(ltype)
+def layer_init(cfg: ModelConfig, ltype: str, generator: torch.Generator, *,
+               is_head_layer: bool = False):
+    """One layer's params; ``first_k_dense`` head layers take the dense
+    MLP, and ``X`` layers never take MoE."""
     dev = generator.device
-    p: Dict[str, Any] = {"attn_norm": _norm_init(cfg, dev),
-                         "attn": gqa_init(cfg, generator)}
-    if cfg.use_post_norms:
-        p["post_attn_norm"] = _norm_init(cfg, dev)
+    p: Dict[str, Any] = {"attn_norm": _norm_init(cfg, dev)}
+    if ltype in ("S", "L"):
+        p["attn"] = (mla_init(cfg, generator) if cfg.use_mla
+                     else gqa_init(cfg, generator))
+        if cfg.use_post_norms:
+            p["post_attn_norm"] = _norm_init(cfg, dev)
+    elif ltype == "R":
+        p["recurrent"] = recurrent_block_init(cfg, generator)
+    elif ltype == "M":
+        p["mamba"] = mamba2_init(cfg, generator)
+        return p  # mamba blocks have no separate MLP
+    elif ltype == "X":
+        p["cross_attn"] = cross_attn_init(cfg, generator)
+        p["gate_ffn"] = torch.zeros((), dtype=cfg.param_dtype, device=dev)
+    else:
+        raise ValueError(ltype)
+
     p["mlp_norm"] = _norm_init(cfg, dev)
-    p["mlp"] = (L.mlp_gelu_init(cfg.d_model, cfg.d_ff, generator)
-                if cfg.activation == "gelu"
-                else L.mlp_init(cfg.d_model, cfg.d_ff, generator))
+    if cfg.n_experts > 0 and not is_head_layer and ltype != "X":
+        p["moe"] = moe_init(cfg, generator)
+    else:
+        p["mlp"] = (L.mlp_gelu_init(cfg.d_model, cfg.d_ff, generator)
+                    if cfg.activation == "gelu"
+                    else L.mlp_init(cfg.d_model, cfg.d_ff, generator))
     if cfg.use_post_norms:
         p["post_mlp_norm"] = _norm_init(cfg, dev)
     return p
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, ltype: str,
-                positions: torch.Tensor,
+                positions: torch.Tensor, image_embeds=None,
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = True, impl: str = "auto"):
-    """One layer over stacked params: x ``[D, Nb, S, d_model]``."""
+    """One layer over stacked params: x ``[D, Nb, S, d_model]`` → ``(x,
+    aux)``, aux the MoE layer's auxiliary loss ``[D]`` (None elsewhere)."""
+    aux = None
     res_scale = cfg.residual_scale or 1.0
 
     def drop(h):
@@ -102,22 +131,47 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, ltype: str,
             return h
         return L.dropout(h, cfg.dropout_rate, generator=generator)
 
+    # ---- sequence mixing ------------------------------------------------
     h = _norm_apply(cfg, params["attn_norm"], x)
-    window = cfg.sliding_window if ltype == "L" else None
-    h = gqa_apply(params["attn"], h, cfg=cfg, positions=positions,
-                  window=window, impl=impl)
+    if ltype in ("S", "L"):
+        if cfg.use_mla:
+            h, _ = mla_apply(params["attn"], h, cfg=cfg, positions=positions,
+                             impl=impl)
+        else:
+            window = cfg.sliding_window if ltype == "L" else None
+            h = gqa_apply(params["attn"], h, cfg=cfg, positions=positions,
+                          window=window, impl=impl)
+    elif ltype == "R":
+        h, _ = recurrent_block_apply(params["recurrent"], h, cfg=cfg)
+    elif ltype == "M":
+        # the plain SSD (no impl), as the reference's decoder calls it
+        h = mamba2_apply(params["mamba"], h, cfg=cfg)
+        return x + res_scale * drop(h), aux
+    elif ltype == "X":
+        if image_embeds is None:
+            raise ValueError("a cross-attention ('X') layer needs "
+                             "image_embeds: decoder_forward(image_embeds=...)")
+        h = cross_attn_apply(params["cross_attn"], h, image_embeds, cfg=cfg,
+                             impl=impl)
+    else:
+        raise ValueError(ltype)
     if "post_attn_norm" in params:
         h = _norm_apply(cfg, params["post_attn_norm"], h)
     x = x + res_scale * drop(h)
 
+    # ---- channel mixing -------------------------------------------------
     h = _norm_apply(cfg, params["mlp_norm"], x)
-    if cfg.activation == "gelu":
+    if "moe" in params:
+        h, aux = moe_apply(params["moe"], h, cfg=cfg)
+    elif cfg.activation == "gelu":
         h = L.mlp_gelu_apply(params["mlp"], h)
     else:
         h = L.mlp_apply(params["mlp"], h, activation=cfg.activation)
     if "post_mlp_norm" in params:
         h = _norm_apply(cfg, params["post_mlp_norm"], h)
-    return x + res_scale * drop(h)
+    if ltype == "X":
+        h = L.per_device(torch.tanh(params["gate_ffn"].to(h.dtype)), h) * h
+    return x + res_scale * drop(h), aux
 
 
 # ================================================================ model
@@ -135,7 +189,8 @@ def decoder_init(cfg: ModelConfig, generator: torch.Generator):
     U = cfg.pattern_units
     params: Dict[str, Any] = {"embed": emb.embed_init(
         cfg.vocab_size, cfg.d_model, generator, dtype=cfg.param_dtype)}
-    params["head_layers"] = [layer_init(cfg, t, generator)
+    params["head_layers"] = [layer_init(cfg, t, generator,
+                                        is_head_layer=True)
                              for t in head_types]
     units = []
     for t in pattern:
@@ -152,29 +207,38 @@ def decoder_init(cfg: ModelConfig, generator: torch.Generator):
 
 
 def decoder_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
+                    image_embeds: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     deterministic: bool = True, impl: str = "auto",
                     last_logit_only: bool = False, caches=None,
                     decode: bool = False,
                     collect_prefill_caches: bool = False):
     """Stacked params, tokens ``[D, Nb, S]`` (or ``[1, Nb, S]``, shared by
-    every device) → ``(logits [D, Nb, S or 1, vocab], aux_loss)``.  The
-    dense layers add no auxiliary loss, so ``aux_loss`` is 0.  The decode
-    caches (``caches``, ``decode``, ``collect_prefill_caches``) are not
-    ported and raise."""
-    if caches is not None or decode or collect_prefill_caches:
-        raise NotImplementedError(
-            f"decoder KV caches (prefill and decode) are not ported yet: "
-            f"{_UNPORTED}")
-    check_supported(cfg)
+    every device) → ``(logits [D, Nb, S or 1, vocab], aux [D])``.
+
+    ``aux`` is each device's sum of its MoE layers' auxiliary losses (0
+    without MoE): the reference computes it inside the engine's ``vmap``,
+    so its means run over one device's rows and tokens.  ``image_embeds``
+    ``[D or 1, Nb, Skv, d_model]`` feed the ``X`` layers' keys and values.
+    The decode caches (``caches``, ``decode``, ``collect_prefill_caches``)
+    are not ported and raise."""
+    check_supported(cfg, impl=impl, caches=caches, decode=decode,
+                    collect_prefill_caches=collect_prefill_caches)
     head_types, pattern, tail_types = _layer_plan(cfg)
     S = tokens.shape[-1]
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     x = emb.embed_apply(params["embed"], tokens, scale=cfg.scale_embeddings,
                         dtype=cfg.dtype)
-    run = lambda p, x, t: layer_apply(
-        p, x, cfg=cfg, ltype=t, positions=positions, generator=generator,
-        deterministic=deterministic, impl=impl)
+    aux_total = None
+
+    def run(p, x, t):
+        nonlocal aux_total
+        x, aux = layer_apply(p, x, cfg=cfg, ltype=t, positions=positions,
+                             image_embeds=image_embeds, generator=generator,
+                             deterministic=deterministic, impl=impl)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+        return x
 
     for p, t in zip(params["head_layers"], head_types):
         x = run(p, x, t)
@@ -193,4 +257,7 @@ def decoder_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     if cfg.final_logit_softcap:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
-    return logits, torch.zeros((), device=logits.device)
+    if aux_total is None:
+        aux_total = torch.zeros(x.shape[0], dtype=torch.float32,
+                                device=x.device)
+    return logits, aux_total

@@ -1,5 +1,6 @@
 """Grouped-query attention over a leading device axis (``repro.nn.attention``
-ported: projections, RoPE and the masked softmax core; no KV cache).
+ported: projections, RoPE, the masked softmax core and gated
+cross-attention; no KV cache).
 
 The core has the JAX package's routes, chosen by ``impl``:
 
@@ -13,8 +14,8 @@ The core has the JAX package's routes, chosen by ``impl``:
 * ``"blockwise"`` — the reference's XLA scan over KV blocks, which
   ``"auto"`` picks above 2048 keys.  Not ported: it raises.
 
-Decode caches (full and ring) and cross-attention arrive with the serve
-path (ROADMAP.md Queue 1 item 16).
+Decode caches (full and ring, and the cross-attention caches) arrive with
+the serve path (ROADMAP.md Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.nn import init as initializers
-from repro_torch.nn.layers import dense_apply
+from repro_torch.nn.layers import dense_apply, per_device
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
 
@@ -105,3 +106,34 @@ def gqa_apply(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
                          causal=True, window=window,
                          softcap=cfg.attn_logit_softcap, impl=impl)
     return dense_apply(params["wo"], out.reshape(Dn, Nb, S, H * hd))
+
+
+# =============================================================== cross-attn
+def cross_attn_init(cfg, generator: torch.Generator):
+    """GQA projections, plus the zero ``gate_attn`` scalar of
+    llama-3.2-vision's tanh gate."""
+    p = gqa_init(cfg, generator)
+    p["gate_attn"] = torch.zeros((), dtype=cfg.param_dtype,
+                                 device=generator.device)
+    return p
+
+
+def cross_attn_apply(params, x: torch.Tensor, kv_src: torch.Tensor, *, cfg,
+                     impl: str = "auto") -> torch.Tensor:
+    """Cross-attention over stacked params: queries from x ``[D, Nb, Sq,
+    d_model]``, keys and values from kv_src ``[D, Nb, Skv, d_model]`` (or
+    ``[1, Nb, Skv, d_model]``, shared by every device: encoder output or
+    image embeddings).  No RoPE, no causality; the optional ``wo`` bias
+    and the ``tanh(gate_attn)`` gate as in the reference."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = _proj(params["wq"], x, H, hd)                    # [D, Nb, Sq, H, hd]
+    k = _proj(params["wk"], kv_src, Hkv, hd)             # [D, Nb, Skv, ...]
+    v = _proj(params["wv"], kv_src, Hkv, hd)
+    Dn, Nb, Sq = x.shape[:3]
+    fold = lambda t: t.reshape((Dn * Nb,) + tuple(t.shape[2:]))
+    out = attention_core(fold(q), fold(k).to(q.dtype), fold(v).to(q.dtype),
+                         causal=False, impl=impl)
+    y = dense_apply(params["wo"], out.reshape(Dn, Nb, Sq, H * hd))
+    if "gate_attn" in params:
+        y = per_device(torch.tanh(params["gate_attn"].to(y.dtype)), y) * y
+    return y

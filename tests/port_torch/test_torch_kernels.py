@@ -306,10 +306,11 @@ def _plan_widths(name):
         return tuple(range(1, 41))
     from dataclasses import replace
     from repro_torch.core.model_adapter import DecoderLMAdapter, SSMAdapter
-    from repro_torch.models.config import lm_100m, mamba2_1_3b
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import lm_100m
     if name == "ssm":            # path A: one Mamba-2 block, 1.3b widths
         return _lm_widths(SSMAdapter(replace(
-            mamba2_1_3b(), n_layers=1, param_dtype=torch.float32,
+            get_config("mamba2-1.3b"), n_layers=1, param_dtype=torch.float32,
             dtype=torch.float32)))
     return _lm_widths(DecoderLMAdapter(lm_100m()))    # path B
 

@@ -315,7 +315,12 @@ ATTN_CASES = [
     (1, 70, 100, 4, 1, 80, True, None, None, 30),
     (1, 50, 50, 4, 2, 96, True, None, None, 0),
     (1, 50, 50, 4, 2, 192, True, None, 30.0, 0),
-    (1, 37, 45, 4, 2, 13, True, None, None, 8),
+    # MiniCPM3-4B's MLA (path C): 40 heads of dn + dr = 96, H = Hkv
+    (8, 32, 32, 40, 40, 96, True, None, None, 0),
+    # llama-3.2-vision's cross-attention: 32 text tokens against 1,600
+    # image tokens, 32 query heads over 8 KV heads of 128, non-causal
+    (2, 32, 1600, 32, 8, 128, False, None, None, 0),
+    (1, 37, 45, 4, 2, 13, True, None, None, 8),       # 52-byte rows
     (2, 512, 512, 10, 5, 64, True, None, None, 0),    # lm-100m, 512 tokens
 ]
 
@@ -367,6 +372,7 @@ def test_flash_attention_kernel_scalar_path_off_16_bytes(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("case", [ATTN_CASES[6], ATTN_CASES[7],
+                                  ATTN_CASES[-4], ATTN_CASES[-3],
                                   ATTN_CASES[-2], ATTN_CASES[-1]])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_is_bitwise_repeatable(cuda, case, dtype):

@@ -249,9 +249,10 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("call", ["comms", "engine", "scenario", "adapter"])
 def test_unported_options_raise(call):
-    """What the port does not run yet raises naming its ROADMAP item (the
-    MoE decoder); the options ported since run, or raise the reference's
-    ``ValueError`` where the reference refuses them."""
+    """What the port does not run yet raises naming its ROADMAP item (a
+    decode call, the blockwise attention core); the options ported since
+    run, or raise the reference's ``ValueError`` where the reference
+    refuses them."""
     from repro_torch.core.comms import CommsConfig
     from repro_torch.core.fleet import FleetConfig
     from repro_torch.core.stream import StreamConfig
@@ -275,12 +276,22 @@ def test_unported_options_raise(call):
         rep = run_experiment(cfg, scenario="stream", num_devices=2,
                              n_test=10, device="cpu")[0]
         assert rep["stream"]["events"] == 1 and "async" in rep
-    else:  # the LM adapters are ported; the MoE decoder is not yet
+    else:  # the MoE decoder runs; the blockwise core and decode do not
         from repro_torch.core.model_adapter import DecoderLMAdapter
         from repro_torch.models.config import ModelConfig
+        from repro_torch.models.decoder import decoder_forward
+        from repro_torch.tree import tree_map
+        moe = ModelConfig(n_layers=1, d_model=64, n_heads=1, n_kv_heads=1,
+                          vocab_size=32, n_experts=4)
+        adapter = DecoderLMAdapter(moe)
+        Trainer(cfg, adapter=adapter, device="cpu")
+        params = adapter.init(torch.Generator().manual_seed(0))
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, adapter=DecoderLMAdapter(ModelConfig(n_experts=4)),
-                    device="cpu")
+            DecoderLMAdapter(moe, impl="blockwise")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            decoder_forward(tree_map(lambda a: a[None], params),
+                            torch.zeros(1, 1, 4, dtype=torch.int32), cfg=moe,
+                            decode=True)
 
 
 def test_port_imports_no_jax():
