@@ -41,7 +41,13 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    ``scaled_dot_product_attention`` times at path B's shape, at lm-100m's
    full 512-token context and at the MLA and cross-attention shapes,
    and at the MLA shape the layer's own bound (v and o at dv 64) beside
-   the kernel's on the padded inputs;
+   the kernel's on the padded inputs; then the serve path's shapes
+   (gemma2-2b, 8 over 4 heads of 256, softcap 50): the prefill of 4 x
+   4,128 tokens with and without the 4,096 window, a decode step at
+   q_offset 4,128 on the full cache of 4,161 slots and one on the
+   wrapped ring of 4,096, each timed in float32 (the decode on the full
+   cache in bfloat16 too) beside its bound, its plain version and
+   ``scaled_dot_product_attention`` without the softcap;
 6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
    package's test shapes, the kernel's edges and the SSM path's shape
    (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
@@ -150,7 +156,25 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     gap between the K-th and (K+1)-th router probability printed; then
     one ``scenario="lm"`` round at 4 devices on the card for deepseek-v2
     and recurrentgemma (dropout 0.1, ``impl="pallas"``): accuracy in [0,
-    1], weights summing to 1, the MoE fleet's aux positive;
+    1], weights summing to 1, the MoE fleet's aux positive; then (c)
+    serving through ``models.api`` at ``reduced()``: qwen3-8b, gemma2-2b
+    (its ring of 128 wraps at the fifth step), deepseek-v2, arctic,
+    recurrentgemma, mamba2 and llama-3.2-vision each prefill 2 prompts of
+    124 tokens and decode 8 steps on the card and on the CPU, the same
+    weights and tokens, ``impl="pallas"``: every step's logits within
+    1e-4 with float32 caches, within 2e-2 of the largest logit with
+    bfloat16 caches, every MoE call's capacity drops equal;
+23. gemma2-2b served at its published widths and full depth
+    (``repro_torch.launch.serve.serve("gemma2-2b", full_config=True,
+    batch=4, prompt_len=4128, max_new_tokens=32)``: 2,614,341,888
+    parameters, caches of 4,161 slots, the local layers' rings wrapped):
+    (a) float32 on the routes ``"pallas"`` (K3 on every prefill and
+    decode attention, 832 launches), ``"naive"`` and ``"auto"`` (the
+    blockwise prefill), the last two teacher-forced on the first's
+    tokens: every step's logits within 1e-4 of the largest logit, and
+    within 1e-4 of a full forward over the same tokens; (b) bfloat16,
+    ``"pallas"``: prefill seconds, decode tokens a second, peak memory,
+    K3 launches, finite logits;
 20. the sharded fleet (``launch.mesh``): (a) massive, fog, async and stream
     once more unsharded and once on a one-rank NCCL mesh
     (``make_device_mesh()``, the fog path ``make_fog_mesh(1, 1)``), each
@@ -166,14 +190,15 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
 11. run last: the host time of each path's data generation, then the
-    five paths of phases 8-10 and phases 15-17, 19 and 21 again under the
+    five paths of phases 8-10, phases 15-17, 19 and 21 and phase 23
+    (b) again under the
     CUDA activity tracer (wall, device-busy time, idle share, the
     kernels with the most device time, and the host seconds spent
     reading the trace), and phase 13's int8 run and phase 14 with host
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
 18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19,
-    21, 22 (the fleets) and 20 (a), K2's segment-form launches of phase 19
+    21, 22 (the fleets), 23 and 20 (a), K2's segment-form launches of phase 19
     apart, error, times, bound), and last the ``{"ok": true, "device":
     ...}`` line.
 
@@ -779,6 +804,22 @@ MLA_V_DIM = 64
 # text tokens against its 1,600 image tokens, 32 query heads over 8 KV
 # heads of 128, no causality; 32 sequences
 VISION_ATTN = (32, 32, 1600, 32, 8, 128, False, None, None)
+# gemma2-2b served (phase 23): 4 prompts of 4,128 tokens, 8 query heads
+# over 4 KV heads of 256, softcap 50; the prefill of a global (S) layer and
+# of a local (L) one (window 4,096), and a decode step at q_offset 4,128
+# against the full cache of 4,161 slots and against the wrapped ring of
+# 4,096 (every slot valid: no causality, no window)
+# (name, (B, Sq, Skv, H, Hkv, d, causal, window, softcap), q_offset)
+SERVE_ATTN = (
+    ("serve prefill (S layer)", (4, 4128, 4128, 8, 4, 256, True, None, 50.0),
+     0),
+    ("serve prefill (L layer)", (4, 4128, 4128, 8, 4, 256, True, 4096, 50.0),
+     0),
+    ("serve decode (full cache)", (4, 1, 4161, 8, 4, 256, True, None, 50.0),
+     4128),
+    ("serve decode (wrapped ring)", (4, 1, 4096, 8, 4, 256, False, None,
+                                     50.0), 0),
+)
 
 
 def causal_pairs(Sq, Skv, causal, window, q_offset):
@@ -792,15 +833,23 @@ def causal_pairs(Sq, Skv, causal, window, q_offset):
     return n
 
 
-def attn_bound(B, Sq, Skv, H, Hkv, d, causal=True, dv=None):
-    """K3's bound at one float32 shape (causal at q_offset 0, or not): q,
-    k, v read once, o written once; 2·d + 2·dv operations a kept (query,
-    key) pair.  ``dv`` (default d) is the head dim of v and o: MLA's
-    layer needs only dv 64 of the 96 its padded v carries.  Returns
-    (bound ms, bytes, flops, bound_by)."""
+def attn_bound(B, Sq, Skv, H, Hkv, d, causal=True, dv=None, window=None,
+               q_offset=0, itemsize=4):
+    """K3's bound at one shape (float32 unless ``itemsize``): q read once,
+    the keys and values that the mask can keep read once (causal: none
+    past ``q_offset + Sq - 1``; with a window, none before ``q_offset -
+    window + 1``), o written once; 2·d + 2·dv operations a kept (query,
+    key) pair under the causal mask from ``q_offset`` and the window.
+    ``dv`` (default d) is the head dim of v and o: MLA's layer needs only
+    dv 64 of the 96 its padded v carries.  Returns (bound ms, bytes,
+    flops, bound_by)."""
     dv = d if dv is None else dv
-    nbytes = 4 * (B * Sq * H * (d + dv) + B * Skv * Hkv * (d + dv))
-    flops = (2 * d + 2 * dv) * B * H * causal_pairs(Sq, Skv, causal, None, 0)
+    lo = 0 if window is None else max(0, q_offset - window + 1)
+    hi = min(Skv, q_offset + Sq) if causal else Skv
+    keys = max(0, hi - lo)
+    nbytes = itemsize * (B * Sq * H * (d + dv) + B * keys * Hkv * (d + dv))
+    flops = (2 * d + 2 * dv) * B * H * causal_pairs(Sq, Skv, causal, window,
+                                                    q_offset)
     by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
           else "operations")
     return bound_ms(nbytes, flops), nbytes, flops, by
@@ -885,6 +934,8 @@ def check_flash_attention_kernel(torch, k3):
         shapes.append(entry)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    worst = max(worst, check_flash_attention_serve_shapes(torch, k3, gen,
+                                                          sdpa, shapes))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -893,6 +944,77 @@ def check_flash_attention_kernel(torch, k3):
             "bound_ms": shapes[0]["bound_ms"],
             "bound_by": shapes[0]["bound_by"],
             "library_ms": shapes[0]["library_ms"], "shapes": shapes}
+
+
+def check_flash_attention_serve_shapes(torch, k3, gen, sdpa, shapes):
+    """Phase 5, the serve path's shapes (``SERVE_ATTN``): K3 against its
+    plain version in float32 (2e-5) and bfloat16 (2e-2 of the plain
+    output's largest magnitude: a diffuse decode over 4,161 keys gives
+    outputs of about 0.03, so an absolute limit would pass a wrong
+    kernel), two calls bit-equal; kernel, plain and ``scaled_dot_product_attention`` times
+    beside the bound (SDPA has no softcap: timed without one, the decode
+    on the full cache with a boolean mask of the keys up to q_offset), the
+    decode on the full cache in bfloat16 too.  Appends the entries to
+    ``shapes``; returns the largest float32 error."""
+    worst = 0.0
+    for name, case, q_offset in SERVE_ATTN:
+        B, Sq, Skv, H, Hkv, d, causal, window, softcap = case
+        kw = dict(causal=causal, window=window, softcap=softcap,
+                  q_offset=q_offset)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(torch, gen, case, dtype)
+            got = k3.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            want = k3.flash_attention_plain(q, k, v, **kw)
+            err = max_err(torch, [got], [want])
+            if not torch.equal(got, k3.flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"K3 {name} {dtype}: two calls differ")
+            top = float(want.float().abs().max())
+            tol = 2e-2 * top if dtype == torch.bfloat16 else 2e-5
+            print(f"  K3 {name} {str(dtype)[6:]}: max_abs_err {err:.3e} "
+                  f"(limit {tol:.3e}; largest plain output {top:.4f}), "
+                  f"two calls bit-equal")
+            del want
+            if not err <= tol:
+                raise AssertionError(f"K3 {name} {dtype}: max_abs_err {err} "
+                                     f"> {tol}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            else:   # the float32 entry of this shape, appended just before
+                shapes[-1].update(bf16_max_abs_err=err, bf16_limit=tol)
+            if dtype == torch.bfloat16 and "full cache" not in name:
+                continue
+            ms, how, host = timed(torch, lambda: k3.flash_attention(
+                q, k, v, **kw), "flash_attention_kernel")
+            plain, _, _ = timed(torch, lambda: k3.flash_attention_plain(
+                q, k, v, **kw))
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = None
+            if Sq == 1 and causal:
+                mask = (torch.arange(Skv, device="cuda") <= q_offset)[None]
+            lib, _, _ = timed(torch, lambda: sdpa(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and Sq > 1,
+                enable_gqa=True))
+            bound, nbytes, flops, by = attn_bound(
+                B, Sq, Skv, H, Hkv, d, causal, window=window,
+                q_offset=q_offset, itemsize=q.element_size())
+            print(f"  K3 {name} q [{B}, {Sq}, {H}, {d}] k [{B}, {Skv}, "
+                  f"{Hkv}, {d}] {str(dtype)[6:]} q_offset {q_offset}, "
+                  f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
+                  f"scaled_dot_product_attention (no softcap) {lib:.5f} ms, "
+                  f"bound {bound:.5f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+                  f"{flops / 1e9:.2f} GFLOP; {bound / ms:.3f} of it); "
+                  f"wrapper per call with host overhead {host:.5f} ms")
+            shapes.append({"case": f"{name} {str(dtype)[6:]}",
+                           "shape": list(case[:6]), "causal": causal,
+                           "window": window, "q_offset": q_offset, "ms": ms,
+                           "how": how, "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib,
+                           "max_abs_err": err})
+            del qt, kt, vt
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return worst
 
 
 # (Z, L, g, h, n, p): the JAX package's tests/test_kernels.py shapes
@@ -1205,7 +1327,7 @@ def check_zoo_against_cpu(torch):
         res = {}
         for dev in ("cuda", "cpu"):
             with MoERecords(torch) as rec:
-                logits, aux = decoder_forward(
+                logits, _, aux = decoder_forward(
                     tree_map(lambda a: a.to(dev), params), toks.to(dev),
                     cfg=cfg, image_embeds=None if img is None else img.to(dev),
                     impl="pallas")
@@ -1263,8 +1385,9 @@ def run_zoo_fleets(torch, fed, reset, read):
         toks = torch.from_numpy(make_lm_dataset(
             64, seq_len=32, vocab=mcfg.vocab_size, seed=5,
             stream_seed=0).images).to("cuda")
-        _, aux = decoder_forward(tree_map(lambda a: a[None], fog.models[-1]),
-                                 toks[None], cfg=mcfg, impl="pallas")
+        _, _, aux = decoder_forward(
+            tree_map(lambda a: a[None], fog.models[-1]), toks[None],
+            cfg=mcfg, impl="pallas")
         print(f"  fleet {name} (4 devices, 1 round): aggregated_acc {acc}, "
               f"weights sum {wsum:.6f}, fog model's aux on 64 test "
               f"sequences {float(aux[0]):.6f}; wall {wall:.3f} s; launches "
@@ -1276,6 +1399,201 @@ def run_zoo_fleets(torch, fed, reset, read):
             raise AssertionError(f"zoo fleet {name}: aux {float(aux[0])}")
         out[name] = (wall, launches)
     return out
+
+
+# phase 22 (c): prefill then decode, each family at reduced(); gemma2-2b's
+# window is 128 there, so a prompt of 124 wraps its ring at the fifth step
+ZOO_DECODE = (("qwen3-8b", "qwen3-8b"), ("gemma2-2b", "gemma2-2b"),
+              ("deepseek-v2", "deepseek-v2-236b"), ("arctic", "arctic-480b"),
+              ("recurrentgemma", "recurrentgemma-9b"),
+              ("mamba2", "mamba2-1.3b"),
+              ("llama-vision", "llama-3.2-vision-11b"))
+DECODE_PROMPT, DECODE_STEPS = 124, 8
+
+
+def check_zoo_decode_against_cpu(torch):
+    """Phase 22 (c): each ``ZOO_DECODE`` family at ``reduced()`` through
+    ``models.api`` as a server calls it: a prefill of 2 prompts of 124
+    tokens, then 8 decode steps on the same tokens, on the card and on the
+    CPU (the same weights, tokens and image embeddings from the seed),
+    ``impl="pallas"`` (K3 on the card, its plain version on the CPU):
+    every step's logits within 1e-4 with float32 caches and within 2e-2 of
+    the largest logit with the default bfloat16 caches; every MoE call's
+    capacity drops equal.  Returns a summary per family."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_map
+    out = {}
+    for name, arch in ZOO_DECODE:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        params = tree_map(lambda a: a[0], zoo_params(torch, cfg, 23, D=1))
+        r = np.random.default_rng(23)
+        toks = torch.from_numpy(r.integers(
+            0, cfg.vocab_size, (2, DECODE_PROMPT + DECODE_STEPS)))
+        img = {k: torch.from_numpy(r.normal(size=shape).astype(np.float32))
+               for k, shape in model.extra_input_shapes(2, 0).items()}
+        res = {}
+        for cache_dtype in (torch.float32, torch.bfloat16):
+            for dev in ("cuda", "cpu"):
+                p = tree_map(lambda a: a.to(dev), params)
+                extras = {k: v.to(dev) for k, v in img.items()} or None
+                with MoERecords(torch) as rec:
+                    logits, caches = model.prefill(
+                        p, toks[:, :DECODE_PROMPT].to(dev), extras=extras,
+                        max_cache_len=DECODE_PROMPT + DECODE_STEPS + 1,
+                        cache_dtype=cache_dtype, impl="pallas")
+                    steps = [logits[:, 0]]
+                    for i in range(DECODE_STEPS):
+                        pos = DECODE_PROMPT + i
+                        logits, caches = model.decode_step(
+                            p, toks[:, pos:pos + 1].to(dev), caches,
+                            position=pos, extras=extras, impl="pallas")
+                        steps.append(logits[:, 0])
+                res[dev] = (torch.stack(steps, dim=1).float().cpu(),
+                            [c[1] for c in rec.calls])
+            (lg, dg), (lc, dc) = res["cuda"], res["cpu"]
+            err = float((lg - lc).abs().max())
+            rel = err / float(lc.abs().max())
+            f32 = cache_dtype == torch.float32
+            print(f"  {name} decode ({arch} reduced, {str(cache_dtype)[6:]} "
+                  f"caches): prefill {DECODE_PROMPT} + {DECODE_STEPS} steps, "
+                  f"logits {tuple(lg.shape)} card vs CPU max_abs_err "
+                  f"{err:.3e} ({rel:.3e} of the largest); MoE calls "
+                  f"{len(dg)}, capacity drops equal: {dg == dc}")
+            if not ((err <= 1e-4 if f32 else rel <= 2e-2) and dg == dc
+                    and bool(torch.isfinite(lg).all())):
+                raise AssertionError(f"zoo decode {name} {cache_dtype}: "
+                                     f"err {err} ({rel}), drops {dg} vs {dc}")
+            out[f"{name} {str(cache_dtype)[6:]}"] = {
+                "logits_err": err, "rel_err": rel, "moe_calls": len(dg),
+                "drops": sum(sum(d) for d in dg)}
+    return out
+
+
+# phase 23: gemma2-2b (src/repro_torch/configs/gemma2_2b.py, arXiv:2408.00118)
+# served at its published widths and full depth, 26 layers; the JAX
+# package's decoder_init gives the same count (jax.eval_shape, on the CPU)
+SERVE = dict(batch=4, prompt_len=4128, max_new_tokens=32)
+SERVE_PARAMS = 2_614_341_888
+SERVE_K3 = 26 * SERVE["max_new_tokens"]   # a prefill and 31 decode steps
+
+
+def serve_run(torch, serve, reset, read, **kw):
+    """One ``serve("gemma2-2b", full_config=True, ...)`` call at ``SERVE``
+    on the card, its launches counted: ``(result, wall s, launches, peak
+    allocated GiB, peak reserved GiB)``."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    res = serve("gemma2-2b", full_config=True, device="cuda", **SERVE, **kw)
+    torch.cuda.synchronize()
+    wall, launches = time.perf_counter() - t0, read()
+    return (res, wall, launches, torch.cuda.max_memory_allocated() / 2**30,
+            torch.cuda.max_memory_reserved() / 2**30)
+
+
+def run_serve_path(torch, reset, read):
+    """Phase 23: gemma2-2b served as a user serves it (``launch.serve``),
+    4 prompts of 4,128 tokens (past the 4,096 window: the rings wrap; past
+    2,048 keys: ``"auto"`` prefills on the blockwise core), 32 new
+    tokens, caches of 4,161 slots.  (a) float32 weights, activations and
+    caches, the same weights and prompts on three routes: ``"pallas"``
+    (K3 on every prefill and decode attention), ``"naive"`` and
+    ``"auto"`` teacher-forced on the pallas run's tokens: every step's
+    logits within 1e-4 of the largest logit, and the pallas run's within
+    1e-4 of a full forward over the same tokens (one request at a time);
+    the share of equal greedy tokens.  (b) the published bfloat16,
+    ``"pallas"``: prefill seconds, decode tokens a second, peak memory,
+    K3 launches (``SERVE_K3``), logits finite and tokens in range.
+    Returns the summary and the main-path launches."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.api import build_model
+    f32 = torch.float32
+    runs, summary, all_launches = {}, {}, []
+    for impl in ("pallas", "naive", "auto"):
+        forced = None if impl == "pallas" else runs["pallas"].tokens
+        res, wall, launches, peak, reserved = serve_run(
+            torch, serve, reset, read, impl=impl, dtype=f32, forced=forced,
+            keep_logits=True)
+        runs[impl] = res
+        all_launches.append(launches)
+        how = "" if forced is None else ", teacher-forced"
+        print(f"  (a) float32, impl={impl!r}{how}: {res.n_params:,} "
+              f"parameters; prefill {res.prefill_s:.3f} s, "
+              f"decode {res.tokens_per_s:.1f} tokens/s ({res.decode_s:.3f} "
+              f"s); wall {wall:.3f} s; peak {peak:.2f} GiB allocated, "
+              f"{reserved:.2f} reserved; launches {launches}")
+        if res.n_params != SERVE_PARAMS:
+            raise AssertionError(f"gemma2-2b has {res.n_params} parameters, "
+                                 f"not {SERVE_PARAMS}")
+        want_k3 = SERVE_K3 if impl == "pallas" else 0
+        if launches["flash_attention"] != want_k3:
+            raise AssertionError(f"serve impl={impl}: K3 launched "
+                                 f"{launches['flash_attention']} times, not "
+                                 f"{want_k3}")
+        summary[f"f32 {impl}"] = {
+            "wall_s": wall, "prefill_s": res.prefill_s,
+            "decode_s": res.decode_s, "tokens_per_s": res.tokens_per_s,
+            "peak_gib": peak, "reserved_gib": reserved,
+            "launches": launches}
+    base = runs["pallas"].logits
+    scale = float(base.abs().max())
+    for impl in ("naive", "auto"):
+        d = (runs[impl].logits - base).abs()
+        pre, dec = float(d[:, 0].max()) / scale, float(d[:, 1:].max()) / scale
+        same = float((runs[impl].tokens == runs["pallas"].tokens)
+                     .float().mean())
+        print(f"  (a) {impl} vs pallas: prefill's last logits "
+              f"{pre:.3e}, decode steps {dec:.3e} of the largest logit "
+              f"{scale:.4f}; equal greedy tokens {same:.4f}")
+        if not (pre <= 1e-4 and dec <= 1e-4):
+            raise AssertionError(f"serve {impl} vs pallas: {pre}, {dec}")
+        summary[f"f32 {impl}"].update(rel_err_prefill=pre, rel_err_decode=dec,
+                                      equal_tokens=same)
+    cfg = replace(get_config("gemma2-2b"), param_dtype=f32, dtype=f32)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    toks = torch.cat([runs["pallas"].prompts, runs["pallas"].tokens[:, :-1]],
+                     dim=1)
+    P = SERVE["prompt_len"]
+    worst = 0.0
+    with torch.no_grad():
+        for b in range(SERVE["batch"]):
+            full, _ = model.apply(params, toks[b:b + 1], impl="pallas")
+            worst = max(worst, float((full[0, P - 1:] - base[b]).abs().max()))
+            del full
+    del params
+    worst /= scale
+    print(f"  (a) decode vs the full forward over the same {toks.shape[1]} "
+          f"tokens: {worst:.3e} of the largest logit")
+    if not worst <= 1e-4:
+        raise AssertionError(f"serve decode vs full forward: {worst}")
+    summary["decode_vs_forward"] = worst
+    del runs, base
+    res, wall, launches, peak, reserved = serve_run(
+        torch, serve, reset, read, impl="pallas", keep_logits=True)
+    all_launches.append(launches)
+    ok = (bool(torch.isfinite(res.logits.float()).all())
+          and 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 256000)
+    print(f"  (b) bfloat16, impl='pallas': prefill {res.prefill_s:.3f} s, "
+          f"decode {res.tokens_per_s:.1f} tokens/s ({res.decode_s:.3f} s for "
+          f"{SERVE['max_new_tokens']} tokens of {SERVE['batch']} requests); "
+          f"wall {wall:.3f} s; peak {peak:.2f} GiB allocated, "
+          f"{reserved:.2f} reserved; K3 launches "
+          f"{launches['flash_attention']}; logits finite and tokens in "
+          f"range: {ok}; request 0: {res.tokens[0, :16].tolist()}")
+    if not ok or launches["flash_attention"] != SERVE_K3:
+        raise AssertionError(f"serve bf16: ok {ok}, launches {launches}")
+    summary["bf16 pallas"] = {
+        "wall_s": wall, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+        "tokens_per_s": res.tokens_per_s, "peak_gib": peak,
+        "reserved_gib": reserved, "launches": launches}
+    return summary, all_launches
 
 
 def check_small_round_against_cpu(torch, fed, interop, lenet):
@@ -2924,6 +3242,11 @@ def main() -> int:
           "two 4-device fleets")
     zoo = check_zoo_against_cpu(torch)
     zoo_fleets = run_zoo_fleets(torch, fed, reset, read)
+    zoo_decode = check_zoo_decode_against_cpu(torch)
+    torch.cuda.empty_cache()
+    phase("phase 23: gemma2-2b served at full depth (launch.serve, 4 x "
+          "4,128-token prompts, 32 new tokens)")
+    serve_path, serve_launches = run_serve_path(torch, reset, read)
     torch.cuda.empty_cache()
     phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
           "async, stream), then massive split over two processes on gloo")
@@ -2935,6 +3258,7 @@ def main() -> int:
 
     phase("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
+    from repro_torch.launch.serve import serve
     t0 = time.perf_counter()
     for n, seed in ((4000, 0), (1000, 5), (20, 11)):
         make_digit_dataset(n, seed=seed)
@@ -2970,7 +3294,10 @@ def main() -> int:
         ("fog", lambda: fed.run_experiment(
             scenario="fog", num_devices=256, rounds=4)),
         ("stream", lambda: fed.run_experiment(
-            scenario="stream", num_devices=256, rounds=8)))
+            scenario="stream", num_devices=256, rounds=8)),
+        ("serve (bf16, pallas)", lambda: serve(
+            "gemma2-2b", full_config=True, device="cuda", impl="pallas",
+            **SERVE)))
     path_profiles = {}
     for name, fn in profiled:
         torch.cuda.reset_peak_memory_stats()
@@ -3009,7 +3336,7 @@ def main() -> int:
                     *(v[1] for v in host.values()),
                     *(v[1] for v in codecs.values()), b_int8[1],
                     hetero[1], churn[1], async_path[1], stream_path[1],
-                    *(v[1] for v in zoo_fleets.values()),
+                    *(v[1] for v in zoo_fleets.values()), *serve_launches,
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -3041,6 +3368,7 @@ def main() -> int:
                                  "launches": stream_path[1],
                                  "telemetry": stream_path[2]},
                       "sharded": sharded, "zoo": zoo,
+                      "zoo_decode": zoo_decode, "serve": serve_path,
                       "zoo_fleets": {k: {"wall_s": w, "launches": n}
                                      for k, (w, n) in zoo_fleets.items()},
                       "k2_lm_trees": k2_lm,

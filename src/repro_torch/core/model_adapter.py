@@ -139,7 +139,7 @@ class DecoderLMAdapter(ModelAdapter):
 
     def _last_logits(self, params, tokens, *, generator=None,
                      deterministic=True, impl="auto"):
-        logits, _ = decoder_forward(
+        logits, _, _ = decoder_forward(
             params, _batched(tokens, 1), cfg=self.config,
             generator=generator, deterministic=deterministic, impl=impl,
             last_logit_only=True)
@@ -153,7 +153,7 @@ class DecoderLMAdapter(ModelAdapter):
                                  deterministic=False, impl=self.impl)
 
     def loss(self, params, x, y, mask, generator):
-        logits, aux = decoder_forward(
+        logits, _, aux = decoder_forward(
             params, x, cfg=self.config, generator=generator,
             deterministic=False, impl="auto", last_logit_only=True)
         return masked_nll(logits[:, :, 0, :], y, mask) + aux

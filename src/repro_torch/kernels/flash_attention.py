@@ -64,9 +64,13 @@ def attention_mask(Sq: int, Skv: int, *, causal: bool, window: Optional[int],
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
-                          scale: Optional[float] = None, q_offset: int = 0):
+                          scale: Optional[float] = None, q_offset: int = 0,
+                          mask: Optional[torch.Tensor] = None):
     """Full-score masked attention with the kernel's semantics, in float32;
-    the output in q's dtype."""
+    the output in q's dtype.  ``mask [Sq, Skv]`` (bool), where given,
+    replaces the mask of ``causal``, ``window`` and ``q_offset``: the
+    ``"naive"`` route of ``nn.attention.attention_core`` passes the one it
+    builds from positions."""
     B, Sq, H, d = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -75,8 +79,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    mask = attention_mask(Sq, Skv, causal=causal, window=window,
-                          q_offset=q_offset, device=q.device)
+    if mask is None:
+        mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                              q_offset=q_offset, device=q.device)
     s = torch.where(mask, s, torch.full((), NEG, device=q.device))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1)[:, None], p,

@@ -1,5 +1,5 @@
 """Decoder-only LM over a leading device axis (``repro.models.decoder``
-ported: every layer type, without the decode caches).
+ported: every layer type, train, prefill and decode).
 
 The layer stack is the reference's: unrolled head layers
 (``first_k_dense``), a repeating pattern unit (config ``attn_pattern``)
@@ -16,9 +16,21 @@ block on the plain SSD, no MLP); ``X`` (gated cross-attention to
 is a dense MLP (SwiGLU, GeGLU or GELU) or, with ``n_experts > 0``, MoE
 (not in the ``first_k_dense`` head layers, never in ``X`` layers).  Also
 optional post-norms, ``residual_scale``, ``scale_embeddings``, the final
-logit softcap and an untied unembedding.  The decode caches and the
-``"blockwise"`` attention core raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 16).
+logit softcap and an untied unembedding.
+
+Decode caches are the reference's tree ``{"head": [...], "units": [...],
+"tail": [...]}``, one cache a layer and, under ``units``, each pattern
+position's caches stacked over units: GQA ``{"k", "v", "pos"}`` (a ring
+on ``L`` layers), MLA ``{"ckv", "krope", "pos"}``, ``R`` and ``M``
+``{"conv", "state"}`` and ``X`` ``{}`` (its keys come from the image
+tokens).  ``decoder_caches_init`` gives one model's; ``decoder_forward``
+takes and returns them stacked over devices (``[D, ...]``, a unit leaf
+``[D, U, ...]``).  Only the attention and latent caches take
+``cache_dtype``: ``R`` and ``M`` prefill caches keep the conv tail in
+the activation dtype and the state as computed, and their empty caches
+are float32.  A decode step writes each layer's new entries INTO the
+caches it is given and returns that same tree: do not reuse a cache
+after a step expecting the old contents.
 
 Dropout sits where the reference puts it: after the attention branch and
 after the MLP branch of every layer, active when ``deterministic`` is
@@ -28,7 +40,7 @@ False and ``dropout_rate > 0``.  The reference derives one key per layer
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -36,38 +48,34 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.nn import embeddings as emb
 from repro_torch.nn import init as initializers
 from repro_torch.nn import layers as L
-from repro_torch.nn.attention import (cross_attn_apply, cross_attn_init,
-                                      gqa_apply, gqa_init)
-from repro_torch.nn.mla import mla_apply, mla_init
+from repro_torch.nn.attention import (IMPLS, cache_from_prefill,
+                                      cross_attn_apply, cross_attn_init,
+                                      gqa_apply, gqa_init, init_cache)
+from repro_torch.nn.mla import (mla_apply, mla_cache_from_prefill,
+                                mla_decode, mla_init, mla_init_cache)
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norms import (layernorm_apply, layernorm_init,
                                   rmsnorm_apply, rmsnorm_init)
-from repro_torch.nn.rglru import recurrent_block_apply, recurrent_block_init
-from repro_torch.nn.ssm import mamba2_apply, mamba2_init
+from repro_torch.nn.rglru import (recurrent_block_apply,
+                                  recurrent_block_init,
+                                  recurrent_block_init_cache)
+from repro_torch.nn.ssm import (mamba2_apply, mamba2_decode, mamba2_init,
+                                mamba2_init_cache)
 from repro_torch.tree import tree_map
 
-_UNPORTED = "ROADMAP.md Queue 1 item 16"
 LAYER_TYPES = ("S", "L", "R", "M", "X")
 
 
-def check_supported(cfg: ModelConfig, *, impl: str = "auto",
-                    caches=None, decode: bool = False,
-                    collect_prefill_caches: bool = False) -> None:
-    """Raise for what the port does not run yet: an unknown layer type
-    (``ValueError``, as the reference), and (``NotImplementedError``) the
-    decode caches and the ``"blockwise"`` attention core."""
+def check_supported(cfg: ModelConfig, *, impl: str = "auto") -> None:
+    """Raise ``ValueError`` on an unknown layer type (as the reference)
+    or attention route."""
     bad = [t for t in cfg.attn_pattern if t not in LAYER_TYPES]
     if bad:
         raise ValueError(f"unknown decoder layer type {bad[0]!r}: use "
                          + " | ".join(LAYER_TYPES))
-    if caches is not None or decode or collect_prefill_caches:
-        raise NotImplementedError(
-            f"decoder KV caches (prefill and decode) are not ported yet: "
-            f"{_UNPORTED}")
-    if impl == "blockwise":
-        raise NotImplementedError(
-            f"attention impl='blockwise' (the XLA scan over KV blocks) is not "
-            f"ported yet: {_UNPORTED}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}: use "
+                         + " | ".join(IMPLS))
 
 
 def _norm_init(cfg, device, dim=None):
@@ -118,12 +126,19 @@ def layer_init(cfg: ModelConfig, ltype: str, generator: torch.Generator, *,
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, ltype: str,
-                positions: torch.Tensor, image_embeds=None,
+                positions: torch.Tensor, position: Optional[int] = None,
+                cache=None, decode: bool = False, image_embeds=None,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = True, impl: str = "auto"):
+                deterministic: bool = True, impl: str = "auto",
+                collect_cache: bool = False):
     """One layer over stacked params: x ``[D, Nb, S, d_model]`` → ``(x,
-    aux)``, aux the MoE layer's auxiliary loss ``[D]`` (None elsewhere)."""
-    aux = None
+    new_cache, aux)``.  ``new_cache`` is the layer's updated cache in
+    decode, its prefill output with ``collect_cache`` (GQA ``(k, v)``, MLA
+    ``(ckv, krope)``, ``R`` / ``M`` their decode cache, ``X`` ``{}``),
+    else None; aux the MoE layer's auxiliary loss ``[D]`` (None
+    elsewhere).  ``position`` is the host-side int of the first token
+    (``gqa_apply``)."""
+    aux = new_cache = None
     res_scale = cfg.residual_scale or 1.0
 
     def drop(h):
@@ -134,25 +149,38 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, ltype: str,
     # ---- sequence mixing ------------------------------------------------
     h = _norm_apply(cfg, params["attn_norm"], x)
     if ltype in ("S", "L"):
-        if cfg.use_mla:
-            h, _ = mla_apply(params["attn"], h, cfg=cfg, positions=positions,
-                             impl=impl)
+        if cfg.use_mla and decode:
+            h, new_cache = mla_decode(params["attn"], h, cache, cfg=cfg,
+                                      position=position)
+        elif cfg.use_mla:
+            h, new_cache = mla_apply(params["attn"], h, cfg=cfg,
+                                     positions=positions, impl=impl)
         else:
             window = cfg.sliding_window if ltype == "L" else None
-            h = gqa_apply(params["attn"], h, cfg=cfg, positions=positions,
-                          window=window, impl=impl)
+            h, new_cache = gqa_apply(params["attn"], h, cfg=cfg,
+                                     positions=positions, window=window,
+                                     cache=cache, decode=decode, impl=impl,
+                                     position=position)
     elif ltype == "R":
-        h, _ = recurrent_block_apply(params["recurrent"], h, cfg=cfg)
+        h, new_cache = recurrent_block_apply(params["recurrent"], h, cfg=cfg,
+                                             cache=cache, decode=decode)
     elif ltype == "M":
         # the plain SSD (no impl), as the reference's decoder calls it
-        h = mamba2_apply(params["mamba"], h, cfg=cfg)
-        return x + res_scale * drop(h), aux
+        if decode:
+            h, new_cache = mamba2_decode(params["mamba"], h, cache, cfg=cfg)
+        elif collect_cache:
+            h, new_cache = mamba2_apply(params["mamba"], h, cfg=cfg,
+                                        return_cache=True)
+        else:
+            h = mamba2_apply(params["mamba"], h, cfg=cfg)
+        return x + res_scale * drop(h), new_cache, aux
     elif ltype == "X":
         if image_embeds is None:
             raise ValueError("a cross-attention ('X') layer needs "
                              "image_embeds: decoder_forward(image_embeds=...)")
         h = cross_attn_apply(params["cross_attn"], h, image_embeds, cfg=cfg,
                              impl=impl)
+        new_cache = {}
     else:
         raise ValueError(ltype)
     if "post_attn_norm" in params:
@@ -171,7 +199,43 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig, ltype: str,
         h = _norm_apply(cfg, params["post_mlp_norm"], h)
     if ltype == "X":
         h = L.per_device(torch.tanh(params["gate_ffn"].to(h.dtype)), h) * h
-    return x + res_scale * drop(h), aux
+    return x + res_scale * drop(h), new_cache, aux
+
+
+def layer_cache_init(cfg: ModelConfig, ltype: str, batch: int, max_len: int,
+                     *, dtype=torch.bfloat16, device=None):
+    """One layer's empty decode cache for one model."""
+    if ltype in ("S", "L"):
+        if cfg.use_mla:
+            return mla_init_cache(batch, max_len, cfg, dtype=dtype,
+                                  device=device)
+        window = cfg.sliding_window if ltype == "L" else None
+        return init_cache(batch, max_len, cfg.n_kv_heads,
+                          cfg.resolved_head_dim,
+                          kind="full" if window is None else "ring",
+                          window=window, dtype=dtype, device=device)
+    if ltype == "R":
+        return recurrent_block_init_cache(batch, cfg, device=device)
+    if ltype == "M":
+        return mamba2_init_cache(batch, cfg, device=device)
+    if ltype == "X":
+        return {}  # cross-attention keys come from the image tokens
+    raise ValueError(ltype)
+
+
+def _cacheify(cfg: ModelConfig, ltype: str, out, max_len: int, dtype):
+    """A layer's prefill output → its decode cache (``[D, ...]``)."""
+    if ltype in ("S", "L") and cfg.use_mla:
+        ckv, krope = out
+        return mla_cache_from_prefill(ckv, krope, max_len=max_len,
+                                      dtype=dtype)
+    if ltype in ("S", "L"):
+        k, v = out
+        window = cfg.sliding_window if ltype == "L" else None
+        return cache_from_prefill(k, v,
+                                  kind="full" if window is None else "ring",
+                                  max_len=max_len, window=window, dtype=dtype)
+    return out  # R, M: already {"conv", "state"}; X: {}
 
 
 # ================================================================ model
@@ -206,47 +270,102 @@ def decoder_init(cfg: ModelConfig, generator: torch.Generator):
     return params
 
 
+def decoder_caches_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                        dtype=torch.bfloat16, device=None):
+    """One model's empty decode caches, the reference's tree (stack them
+    over devices for ``decoder_forward``)."""
+    head_types, pattern, tail_types = _layer_plan(cfg)
+    one = lambda t: layer_cache_init(cfg, t, batch, max_len, dtype=dtype,
+                                     device=device)
+    U = cfg.pattern_units
+    return {"head": [one(t) for t in head_types],
+            "units": [tree_map(lambda a: torch.stack([a] * U), one(t))
+                      for t in pattern],
+            "tail": [one(t) for t in tail_types]}
+
+
 def decoder_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
+                    positions: Union[None, int, torch.Tensor] = None,
+                    caches=None, decode: bool = False,
                     image_embeds: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     deterministic: bool = True, impl: str = "auto",
-                    last_logit_only: bool = False, caches=None,
-                    decode: bool = False,
-                    collect_prefill_caches: bool = False):
+                    collect_prefill_caches: bool = False,
+                    max_cache_len: int = 0, cache_dtype=torch.bfloat16,
+                    last_logit_only: bool = False):
     """Stacked params, tokens ``[D, Nb, S]`` (or ``[1, Nb, S]``, shared by
-    every device) → ``(logits [D, Nb, S or 1, vocab], aux [D])``.
+    every device) → ``(logits [D, Nb, S or 1, vocab], new_caches, aux
+    [D])``, the reference's triple:
+
+    * train: ``new_caches`` None;
+    * prefill (``collect_prefill_caches``): the decode caches holding the
+      sequence, ``max_cache_len`` slots (a ring: the window), attention
+      and latent caches in ``cache_dtype``;
+    * decode (``decode=True``, ``caches`` given, tokens ``[D, Nb, 1]``):
+      ``caches`` itself, each layer's slot written in place.
+
+    ``positions`` is the host-side ``int`` position of the first token
+    (None: 0), or a tensor ``[S]`` of positions as the reference takes
+    them; decode and ``impl="pallas"`` need the int (the kernel route
+    maps positions on the host).
 
     ``aux`` is each device's sum of its MoE layers' auxiliary losses (0
     without MoE): the reference computes it inside the engine's ``vmap``,
     so its means run over one device's rows and tokens.  ``image_embeds``
-    ``[D or 1, Nb, Skv, d_model]`` feed the ``X`` layers' keys and values.
-    The decode caches (``caches``, ``decode``, ``collect_prefill_caches``)
-    are not ported and raise."""
-    check_supported(cfg, impl=impl, caches=caches, decode=decode,
-                    collect_prefill_caches=collect_prefill_caches)
+    ``[D or 1, Nb, Skv, d_model]`` feed the ``X`` layers' keys and values."""
+    check_supported(cfg, impl=impl)
     head_types, pattern, tail_types = _layer_plan(cfg)
     S = tokens.shape[-1]
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    if positions is None or isinstance(positions, int):
+        position = positions or 0
+        positions = torch.arange(position, position + S, dtype=torch.int32,
+                                 device=tokens.device)
+    else:
+        position = None
+        if decode or impl == "pallas":
+            raise ValueError("decode and impl='pallas' need the host-side "
+                             "position: pass positions as an int")
+    if decode and caches is None:
+        raise ValueError("decode=True needs caches")
     x = emb.embed_apply(params["embed"], tokens, scale=cfg.scale_embeddings,
                         dtype=cfg.dtype)
     aux_total = None
 
-    def run(p, x, t):
+    def run(p, x, t, cache):
         nonlocal aux_total
-        x, aux = layer_apply(p, x, cfg=cfg, ltype=t, positions=positions,
-                             image_embeds=image_embeds, generator=generator,
-                             deterministic=deterministic, impl=impl)
+        x, nc, aux = layer_apply(
+            p, x, cfg=cfg, ltype=t, positions=positions, position=position,
+            cache=cache, decode=decode, image_embeds=image_embeds,
+            generator=generator, deterministic=deterministic, impl=impl,
+            collect_cache=collect_prefill_caches)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
-        return x
+        if collect_prefill_caches and not decode:
+            return x, _cacheify(cfg, t, nc, max_cache_len, cache_dtype)
+        return x, None
 
-    for p, t in zip(params["head_layers"], head_types):
-        x = run(p, x, t)
-    for u in range(cfg.pattern_units):
+    collected: Dict[str, Any] = {"head": [], "units": [], "tail": []}
+    for i, (p, t) in enumerate(zip(params["head_layers"], head_types)):
+        x, c = run(p, x, t, caches["head"][i] if decode else None)
+        collected["head"].append(c)
+    U = cfg.pattern_units
+    stacks: List[Any] = [None] * len(pattern)
+    for u in range(U):
         for p_idx, t in enumerate(pattern):
-            x = run(tree_map(lambda a: a[:, u], params["units"][p_idx]), x, t)
-    for p, t in zip(params["tail_layers"], tail_types):
-        x = run(p, x, t)
+            # views of the [D, U, ...] stacks: decode writes land in them
+            c = (tree_map(lambda a: a[:, u], caches["units"][p_idx])
+                 if decode else None)
+            x, c = run(tree_map(lambda a: a[:, u], params["units"][p_idx]),
+                       x, t, c)
+            if c is not None:   # a prefill's cache, into its unit's slot
+                if stacks[p_idx] is None:
+                    stacks[p_idx] = tree_map(lambda a: a.new_empty(
+                        (a.shape[0], U) + tuple(a.shape[1:])), c)
+                tree_map(lambda st, a: st[:, u].copy_(a), stacks[p_idx], c)
+    collected["units"] = stacks
+    for i, (p, t) in enumerate(zip(params["tail_layers"], tail_types)):
+        x, c = run(p, x, t, caches["tail"][i] if decode else None)
+        collected["tail"].append(c)
 
     if last_logit_only:
         x = x[..., -1:, :]        # only the next-token logit is needed
@@ -260,4 +379,6 @@ def decoder_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
     if aux_total is None:
         aux_total = torch.zeros(x.shape[0], dtype=torch.float32,
                                 device=x.device)
-    return logits, aux_total
+    new_caches = (caches if decode
+                  else collected if collect_prefill_caches else None)
+    return logits, new_caches, aux_total

@@ -1,5 +1,5 @@
 """Multi-head Latent Attention (DeepSeek-V2, MiniCPM3) over a leading device
-axis (``repro.nn.mla`` ported: the direct form).
+axis (``repro.nn.mla`` ported: the direct and the absorbed form).
 
 The direct form (train and prefill) decompresses the latent to per-head
 K and V and runs the shared attention core: K = [k_nope ; k_rope], the
@@ -12,22 +12,23 @@ As in the reference, ``q_norm`` and ``kv_norm`` apply their scales with
 fresh layer gives q = 0 and ckv = 0, so its output is 0 until training
 moves the scales.
 
-The absorbed decode form and its latent cache (``mla_init_cache``,
-``mla_cache_from_prefill``, ``mla_decode``) arrive with the serve path
-(ROADMAP.md Queue 1 item 16) and raise.
+The absorbed form (decode) attends the latent cache ``{"ckv": [..., B,
+S, kv_lora], "krope": [..., B, S, dr], "pos": [..., S]}`` directly:
+q_nope is absorbed through W_uk, scores are taken in latent space, and
+the output stays there until W_uv.  Its mask is the reference's,
+``(pos >= 0) & (pos <= position)``, and it runs no kernel, as in the
+reference.  ``mla_decode`` writes the token's slot in place.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import NEG
 from repro_torch.nn import init as initializers
 from repro_torch.nn.attention import attention_core
 from repro_torch.nn.layers import dense_apply
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
-
-_UNPORTED = "ROADMAP.md Queue 1 item 16"
-
 
 def mla_init(cfg, generator: torch.Generator):
     """One layer's MLA params (the reference's shapes and initializers)."""
@@ -105,19 +106,72 @@ def mla_apply(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     return dense_apply(params["wo"], out), (ckv, krope)
 
 
-def _decode_unported(what: str):
-    raise NotImplementedError(
-        f"MLA {what} (the absorbed decode form and its latent cache) is not "
-        f"ported yet: {_UNPORTED}")
+# ------------------------------------------------------------- decode cache
+def _empty_cache(lead, batch: int, max_len: int, kv_lora: int, rope: int,
+                 dtype, device):
+    shape = tuple(lead) + (batch, max_len)
+    return {"ckv": torch.zeros(shape + (kv_lora,), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros(shape + (rope,), dtype=dtype,
+                                 device=device),
+            "pos": torch.full(tuple(lead) + (max_len,), -1,
+                              dtype=torch.int32, device=device)}
 
 
-def mla_init_cache(*args, **kwargs):
-    _decode_unported("mla_init_cache")
+def mla_init_cache(batch: int, max_len: int, cfg, *, dtype=torch.bfloat16,
+                   device=None):
+    """One model's empty latent cache."""
+    return _empty_cache((), batch, max_len, cfg.kv_lora_rank,
+                        cfg.qk_rope_head_dim, dtype, device)
 
 
-def mla_cache_from_prefill(*args, **kwargs):
-    _decode_unported("mla_cache_from_prefill")
+def mla_cache_from_prefill(ckv: torch.Tensor, krope: torch.Tensor, *,
+                           max_len: int, dtype=torch.bfloat16):
+    """A latent cache holding a prefill's ``ckv [..., B, S, kv_lora]`` and
+    ``krope [..., B, S, dr]`` at slots 0..S-1 (leading axes kept)."""
+    lead, (B, S) = ckv.shape[:-3], ckv.shape[-3:-1]
+    cache = _empty_cache(lead, B, max_len, ckv.shape[-1], krope.shape[-1],
+                         dtype, ckv.device)
+    cache["ckv"][..., :S, :] = ckv.to(dtype)
+    cache["krope"][..., :S, :] = krope.to(dtype)
+    cache["pos"][..., :S] = torch.arange(S, dtype=torch.int32,
+                                         device=ckv.device)
+    return cache
 
 
-def mla_decode(*args, **kwargs):
-    _decode_unported("mla_decode")
+def mla_decode(params, x: torch.Tensor, cache, *, cfg, position: int):
+    """Absorbed decode step over stacked params: x ``[D, Nb, 1, d_model]``,
+    ``cache`` the ``[D, ...]`` latent cache, ``position`` the host-side
+    int → ``(out [D, Nb, 1, d_model], cache)``, the token written at slot
+    ``position`` in place.
+
+    scores = q_absorbed · ckv + q_rope · krope (latent space), out =
+    (softmax · ckv) through W_uv."""
+    Dn, Nb = x.shape[:2]
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    positions = torch.arange(position, position + 1, dtype=torch.int32,
+                             device=x.device)
+    q_nope, q_rope = _queries(params, x, cfg, positions)  # [D, Nb, 1, H, *]
+    ckv_new, krope_new = _latents(params, x, cfg, positions)
+    cache["ckv"].select(-2, position).copy_(ckv_new.select(-2, 0))
+    cache["krope"].select(-2, position).copy_(krope_new.select(-2, 0))
+    cache["pos"].select(-1, position).fill_(position)
+
+    wuk = params["wuk"]["kernel"].to(x.dtype).reshape(Dn, r_kv, H, dn)
+    q_abs = torch.einsum("dbqhe,dche->dbqhc", q_nope, wuk)  # [D, Nb, 1, H, r]
+    ckv = cache["ckv"].to(x.dtype)                           # [D, Nb, S, r]
+    krope = cache["krope"].to(x.dtype)                       # [D, Nb, S, dr]
+    s = (torch.einsum("dbqhc,dbsc->dbhqs", q_abs.float(), ckv.float())
+         + torch.einsum("dbqhe,dbse->dbhqs", q_rope.float(), krope.float()))
+    s = s * (dn + dr) ** -0.5
+    pos = cache["pos"]                                       # [D, S]
+    valid = (pos >= 0) & (pos <= position)
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.full((), NEG, device=x.device))
+    p = torch.softmax(s, dim=-1)
+    out_latent = torch.einsum("dbhqs,dbsc->dbqhc", p.to(x.dtype), ckv)
+    wuv = params["wuv"]["kernel"].to(x.dtype).reshape(Dn, r_kv, H, dv)
+    out = torch.einsum("dbqhc,dche->dbqhe", out_latent, wuv)
+    return dense_apply(params["wo"], out.reshape(Dn, Nb, 1, H * dv)), cache

@@ -18,9 +18,10 @@ work is nothing at these lengths.  Sums associate differently from the
 reference's scan: float32 rounding apart, the same recurrence.
 
 The enclosing residual block is Griffin's: a GeLU gate branch and a
-conv1d → RG-LRU branch, multiplied and projected back.  The decode branch
-and its cache (``recurrent_block_init_cache``) arrive with the serve path
-(ROADMAP.md Queue 1 item 16) and raise.
+conv1d → RG-LRU branch, multiplied and projected back.  Decode steps one
+token (``rglru_step``) against the cache ``{"conv": [..., B, W-1, w],
+"state": [..., B, w] float32}`` and writes the new conv tail and state
+into the cache it is given.
 """
 from __future__ import annotations
 
@@ -34,7 +35,6 @@ from repro_torch.nn.layers import dense_apply, dense_init, gelu, per_device
 from repro_torch.nn.ssm import causal_conv1d
 
 _C = 8.0
-_UNPORTED = "ROADMAP.md Queue 1 item 16"
 
 
 def rglru_init(width: int, generator: torch.Generator, *,
@@ -124,25 +124,34 @@ def recurrent_block_init(cfg, generator: torch.Generator):
 
 def recurrent_block_apply(params, x: torch.Tensor, *, cfg, cache=None,
                           decode: bool = False):
-    """Griffin recurrent block over a full sequence: x ``[D, Nb, S, d]`` →
-    ``(out, {"conv": the last W-1 pre-conv activations, "state": the last
-    RG-LRU state})``, the prefill's decode cache."""
-    if decode or cache is not None:
-        raise NotImplementedError(
-            f"the recurrent block's decode step and cache are not ported "
-            f"yet: {_UNPORTED}")
+    """Griffin recurrent block over stacked params.  Full sequence: x
+    ``[D, Nb, S, d]`` → ``(out, {"conv": the last W-1 pre-conv
+    activations, "state": the last RG-LRU state})``, the prefill's decode
+    cache.  Decode (``cache`` the ``[D, ...]`` stacked cache, x ``[D, Nb,
+    1, d]``): ``(out, cache)``, the cache updated in place."""
     gate = gelu(dense_apply(params["gate_proj"], x))
     h = dense_apply(params["rnn_proj"], x)
-    W = params["conv"]["kernel"].shape[1]
-    pad_front = max(0, (W - 1) - h.shape[-2])
-    conv_tail = F.pad(h, (0, 0, pad_front, 0))[..., -(W - 1):, :]
-    h = causal_conv1d(h, params["conv"]["kernel"], params["conv"]["bias"])
-    h, last = rglru_apply(params["rglru"], h, return_state=True)
-    out = dense_apply(params["out_proj"], h * gate)
-    return out, {"conv": conv_tail, "state": last}
+    if decode:
+        h, conv_state = causal_conv1d(h, params["conv"]["kernel"],
+                                      params["conv"]["bias"],
+                                      state=cache["conv"])
+        h, rnn_state = rglru_step(params["rglru"], h, cache["state"])
+        cache["conv"].copy_(conv_state)
+        cache["state"].copy_(rnn_state)
+        new_cache = cache
+    else:
+        h, conv_tail = causal_conv1d(h, params["conv"]["kernel"],
+                                     params["conv"]["bias"])
+        h, last = rglru_apply(params["rglru"], h, return_state=True)
+        new_cache = {"conv": conv_tail, "state": last}
+    return dense_apply(params["out_proj"], h * gate), new_cache
 
 
-def recurrent_block_init_cache(*args, **kwargs):
-    raise NotImplementedError(
-        f"recurrent_block_init_cache (the decode cache) is not ported yet: "
-        f"{_UNPORTED}")
+def recurrent_block_init_cache(batch: int, cfg, *, dtype=torch.float32,
+                               device=None):
+    """One model's empty decode cache (the state always float32)."""
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": torch.zeros((batch, cfg.conv1d_width - 1, w),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, w), dtype=torch.float32,
+                                 device=device)}

@@ -13,8 +13,13 @@ intra-chunk block has two routes, chosen by ``impl``:
   kernel for tensors on the card, the plain version on the CPU.  The name
   is the JAX package's; here it means the hand-written kernel.
 
-The decode cache (``ssd_step``, ``mamba2_decode``) arrives with the serve
-path (ROADMAP.md Queue 1 item 16).
+Decode carries ``{"conv": [..., B, W-1, conv_ch], "state": [..., B, H, P,
+N]}`` (``[D, ...]`` stacked): ``mamba2_apply(return_cache=True)`` builds it
+from a prefill, ``mamba2_init_cache`` empty, and ``mamba2_decode`` steps
+one token with ``ssd_step``, writing the new conv tail and state INTO the
+cache it is given (each leaf keeps its storage dtype: the state, computed
+in the activation dtype as the reference computes it, is stored exactly
+in a float32 cache).
 """
 from __future__ import annotations
 
@@ -70,15 +75,20 @@ def mamba2_init(cfg, generator: torch.Generator, *, dtype=None):
 
 
 # ------------------------------------------------------------------ conv1d
-def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
-                  bias: torch.Tensor) -> torch.Tensor:
+def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
+                  *, state: Optional[torch.Tensor] = None):
     """Depthwise causal conv over ``x [D, ..., S, C]`` with per-device
-    ``kernel [D, W, C]`` and ``bias [D, C]`` (zero history)."""
+    ``kernel [D, W, C]`` and ``bias [D, C]``.  With ``state [D, ..., W-1,
+    C]`` (decode) the history is prepended instead of zeros.  Returns
+    ``(y, new_state)``, the last W-1 inputs of the padded sequence."""
     W, S = kernel.shape[1], x.shape[-2]
-    x_pad = F.pad(x, (0, 0, W - 1, 0))
+    if state is None:
+        x_pad = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        x_pad = torch.cat([state.to(x.dtype), x], dim=-2)
     y = sum(x_pad[..., i:i + S, :] * per_device(kernel[:, i].to(x.dtype), x)
             for i in range(W))
-    return y + per_device(bias.to(x.dtype), x)
+    return y + per_device(bias.to(x.dtype), x), x_pad[..., -(W - 1):, :]
 
 
 # ------------------------------------------------------------------ SSD core
@@ -149,6 +159,20 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None,
     return y, st
 
 
+def ssd_step(x_t, dt_t, A, B_t, C_t, state):
+    """One decode step: x_t ``[b, h, p]``, dt_t ``[b, h]``, A ``[h]`` or
+    ``[b, h]``, B_t and C_t ``[b, g, n]``, state ``[b, h, p, n]`` →
+    ``(y [b, h, p], new_state)``."""
+    h = x_t.shape[1]
+    rep = h // B_t.shape[-2]
+    a = torch.exp(dt_t * A.reshape(-1, h))               # [b, h]
+    Bg = B_t.repeat_interleave(rep, dim=1)               # [b, h, n]
+    Cg = C_t.repeat_interleave(rep, dim=1)
+    dBx = torch.einsum("bhn,bhp->bhpn", Bg, x_t * dt_t[..., None])
+    new_state = state * a[:, :, None, None] + dBx
+    return torch.einsum("bhpn,bhn->bhp", new_state, Cg), new_state
+
+
 # ------------------------------------------------------------------ block
 def _split_proj(z, cfg):
     d_inner, H, P, N, G = ssm_dims(cfg)
@@ -158,18 +182,22 @@ def _split_proj(z, cfg):
 
 def mamba2_apply(params, x: torch.Tensor, *, cfg,
                  initial_state: Optional[torch.Tensor] = None,
-                 return_state: bool = False, impl: str = "ref"):
+                 return_state: bool = False, return_cache: bool = False,
+                 impl: str = "ref"):
     """Full-sequence Mamba-2 block over stacked params: x ``[D, Nb, S,
     d_model]`` → ``[D, Nb, S, d_model]``; ``initial_state [D, Nb, H, P,
-    N]``.  ``impl`` selects the intra-chunk SSD route (``ssd_chunked``)."""
+    N]``.  ``impl`` selects the intra-chunk SSD route (``ssd_chunked``).
+    ``return_cache`` (prefill) also returns the decode cache: the last W-1
+    pre-conv activations and the final SSD state."""
     Dn, Nb, S, _ = x.shape
     d_inner, H, P, N, G = ssm_dims(cfg)
     z, xc, Bx, Cx, dt = _split_proj(
         device_matmul(x, params["in_proj"]["kernel"].to(x.dtype)), cfg)
 
     conv_in = torch.cat([xc, Bx, Cx], dim=-1)
-    conv_out = F.silu(causal_conv1d(conv_in, params["conv"]["kernel"],
-                                    params["conv"]["bias"]))
+    conv_out, conv_tail = causal_conv1d(conv_in, params["conv"]["kernel"],
+                                        params["conv"]["bias"])
+    conv_out = F.silu(conv_out)
     rows = Dn * Nb
     xc = conv_out[..., :d_inner].reshape(rows, S, H, P)
     Bm = conv_out[..., d_inner:d_inner + G * N].reshape(rows, S, G, N)
@@ -187,6 +215,52 @@ def mamba2_apply(params, x: torch.Tensor, *, cfg,
     y = y.reshape(Dn, Nb, S, d_inner)
     y = rmsnorm_apply(params["norm"], y * F.silu(z), zero_centered=False)
     out = device_matmul(y, params["out_proj"]["kernel"].to(x.dtype))
+    final_state = final_state.reshape(Dn, Nb, H, P, N)
+    if return_cache:
+        return out, {"conv": conv_tail, "state": final_state}
     if return_state:
-        return out, final_state.reshape(Dn, Nb, H, P, N)
+        return out, final_state
     return out
+
+
+def mamba2_init_cache(batch: int, cfg, *, dtype=torch.float32, device=None):
+    """One model's empty decode cache."""
+    d_inner, H, P, N, G = ssm_dims(cfg)
+    conv_ch = d_inner + 2 * G * N
+    return {"conv": torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((batch, H, P, N), dtype=dtype,
+                                 device=device)}
+
+
+def mamba2_decode(params, x: torch.Tensor, cache, *, cfg):
+    """One-token step over stacked params: x ``[D, Nb, 1, d_model]``,
+    ``cache`` the ``[D, ...]`` stacked decode cache → ``(out [D, Nb, 1,
+    d_model], cache)``, the cache updated in place."""
+    Dn, Nb = x.shape[:2]
+    d_inner, H, P, N, G = ssm_dims(cfg)
+    z, xc, Bx, Cx, dt = _split_proj(
+        device_matmul(x, params["in_proj"]["kernel"].to(x.dtype)), cfg)
+    conv_out, conv_state = causal_conv1d(
+        torch.cat([xc, Bx, Cx], dim=-1), params["conv"]["kernel"],
+        params["conv"]["bias"], state=cache["conv"])
+    conv_out = F.silu(conv_out)[..., 0, :]                # [D, Nb, ch]
+    rows = Dn * Nb
+    xc = conv_out[..., :d_inner].reshape(rows, H, P)
+    Bm = conv_out[..., d_inner:d_inner + G * N].reshape(rows, G, N)
+    Cm = conv_out[..., d_inner + G * N:].reshape(rows, G, N)
+
+    dt = F.softplus(dt[..., 0, :].float()
+                    + per_device(params["dt_bias"], dt[..., 0, :]))
+    A = -torch.exp(params["A_log"]).repeat_interleave(Nb, dim=0)  # [rows, H]
+    y, new_state = ssd_step(xc, dt.to(x.dtype).reshape(rows, H),
+                            A.to(x.dtype), Bm, Cm,
+                            cache["state"].reshape(rows, H, P, N)
+                            .to(x.dtype))
+    Dp = params["D"].to(x.dtype).repeat_interleave(Nb, dim=0)     # [rows, H]
+    y = (y + xc * Dp[:, :, None]).reshape(Dn, Nb, 1, d_inner)
+    y = rmsnorm_apply(params["norm"], y * F.silu(z), zero_centered=False)
+    out = device_matmul(y, params["out_proj"]["kernel"].to(x.dtype))
+    cache["conv"].copy_(conv_state)
+    cache["state"].copy_(new_state.reshape(cache["state"].shape))
+    return out, cache

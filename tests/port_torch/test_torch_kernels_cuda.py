@@ -322,6 +322,12 @@ ATTN_CASES = [
     (2, 32, 1600, 32, 8, 128, False, None, None, 0),
     (1, 37, 45, 4, 2, 13, True, None, None, 8),       # 52-byte rows
     (2, 512, 512, 10, 5, 64, True, None, None, 0),    # lm-100m, 512 tokens
+    # gemma2-2b decode (8 over 4 heads of 256, softcap 50): one query at
+    # q_offset against a full cache whose slots past it are unwritten, the
+    # same under a window, and a wrapped ring (every slot, no causality)
+    (4, 1, 600, 8, 4, 256, True, None, 50.0, 400),
+    (4, 1, 300, 8, 4, 256, True, 128, 50.0, 250),
+    (4, 1, 256, 8, 4, 256, False, None, 50.0, 0),
 ]
 
 
@@ -387,6 +393,36 @@ def test_flash_attention_kernel_is_bitwise_repeatable(cuda, case, dtype):
     first = k3.flash_attention(q, k, v, **kw)
     for _ in range(2):
         assert torch.equal(first, k3.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("positions", [(30, 31), (62, 63, 64, 70)])
+def test_attention_core_kernel_decode_matches_the_positional_mask(
+        cuda, positions):
+    """``attention_core(impl="pallas")`` maps a decode on a ring of 64
+    slots (window 64) onto the kernel before and after the ring wraps,
+    from the host-side position: equal to the naive route on the cache's
+    position tensor within 2e-5."""
+    from repro_torch.nn.attention import attention_core, cache_update_decode
+    gen = torch.Generator(device=cuda).manual_seed(positions[0])
+    W, kw = 64, dict(causal=True, window=64, softcap=50.0)
+    cache = {"k": torch.zeros(2, W, 2, 128, device=cuda),
+             "v": torch.zeros(2, W, 2, 128, device=cuda),
+             "pos": torch.full((W,), -1, dtype=torch.int32, device=cuda)}
+    for p in range(positions[-1] + 1):
+        k1, v1 = (torch.randn(2, 1, 2, 128, generator=gen, device=cuda)
+                  for _ in range(2))
+        cache_update_decode(cache, k1, v1, p)
+        if p not in positions:
+            continue
+        q = torch.randn(2, 1, 4, 128, generator=gen, device=cuda)
+        before = k3.launches
+        got = attention_core(q, cache["k"], cache["v"], impl="pallas",
+                             decode_position=p, **kw)
+        assert k3.launches == before + 1
+        want = attention_core(q, cache["k"], cache["v"], impl="naive",
+                              q_pos=torch.tensor([p], device=cuda),
+                              kv_pos=cache["pos"], **kw)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
 
 
 def test_flash_attention_kernel_rejects_what_it_does_not_take(cuda):

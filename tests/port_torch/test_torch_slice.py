@@ -249,10 +249,10 @@ def test_no_silent_cpu():
 
 @pytest.mark.parametrize("call", ["comms", "engine", "scenario", "adapter"])
 def test_unported_options_raise(call):
-    """What the port does not run yet raises naming its ROADMAP item (a
-    decode call, the blockwise attention core); the options ported since
-    run, or raise the reference's ``ValueError`` where the reference
-    refuses them."""
+    """The options ported since they raised run (the fleet bundle, live
+    traffic, every scenario, the blockwise attention core and a decode
+    call, item 16b), or raise the reference's ``ValueError`` where the
+    reference refuses them."""
     from repro_torch.core.comms import CommsConfig
     from repro_torch.core.fleet import FleetConfig
     from repro_torch.core.stream import StreamConfig
@@ -276,7 +276,7 @@ def test_unported_options_raise(call):
         rep = run_experiment(cfg, scenario="stream", num_devices=2,
                              n_test=10, device="cpu")[0]
         assert rep["stream"]["events"] == 1 and "async" in rep
-    else:  # the MoE decoder runs; the blockwise core and decode do not
+    else:  # the MoE decoder runs, on the blockwise core and in decode too
         from repro_torch.core.model_adapter import DecoderLMAdapter
         from repro_torch.models.config import ModelConfig
         from repro_torch.models.decoder import decoder_forward
@@ -285,13 +285,22 @@ def test_unported_options_raise(call):
                           vocab_size=32, n_experts=4)
         adapter = DecoderLMAdapter(moe)
         Trainer(cfg, adapter=adapter, device="cpu")
-        params = adapter.init(torch.Generator().manual_seed(0))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DecoderLMAdapter(moe, impl="blockwise")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            decoder_forward(tree_map(lambda a: a[None], params),
-                            torch.zeros(1, 1, 4, dtype=torch.int32), cfg=moe,
-                            decode=True)
+        params = tree_map(lambda a: a[None],
+                          adapter.init(torch.Generator().manual_seed(0)))
+        toks = torch.arange(8, dtype=torch.int32).reshape(1, 2, 4)
+        blockwise = DecoderLMAdapter(moe, impl="blockwise")
+        assert torch.allclose(blockwise.apply(params, toks[0]),
+                              adapter.apply(params, toks[0]), atol=1e-5)
+        _, caches, _ = decoder_forward(params, toks[..., :3], cfg=moe,
+                                       collect_prefill_caches=True,
+                                       max_cache_len=4)
+        logits, _, _ = decoder_forward(params, toks[..., 3:], cfg=moe,
+                                       positions=3, caches=caches,
+                                       decode=True)
+        assert logits.shape == (1, 2, 1, 32)
+        assert bool(torch.isfinite(logits).all())
+        with pytest.raises(ValueError, match="unknown attention impl"):
+            DecoderLMAdapter(moe, impl="flash")
 
 
 def test_port_imports_no_jax():

@@ -269,8 +269,18 @@ def test_mla_apply_matches(q_lora, impl):
     _close(got[0], want, 1e-5)
     _close(tckv[0], ckv, 1e-5)
     _close(tkrope[0], krope, 1e-5)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tmla.mla_decode()
+    # the absorbed decode form (item 16b) on the prefill's latent cache
+    cache = jmla.mla_cache_from_prefill(ckv, krope, max_len=8,
+                                        dtype=jnp.float32)
+    tcache = tmla.mla_cache_from_prefill(tckv, tkrope, max_len=8,
+                                         dtype=torch.float32)
+    x1 = _rng(12).normal(size=(2, 1, 128)).astype(np.float32)
+    want1, _ = _jit(jmla.mla_decode, cfg=jcfg)(
+        jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x1), cache,
+        position=jnp.asarray(7, jnp.int32))
+    got1, _ = tmla.mla_decode(_stack(p), torch.from_numpy(x1)[None], tcache,
+                              cfg=_tcfg(jcfg), position=7)
+    _close(got1[0], want1, 1e-5)
 
 
 # ------------------------------------------------------------ RG-LRU
@@ -339,9 +349,16 @@ def test_recurrent_block_matches_with_conv_tail():
         _close(got[0], want, 1e-5)
         _close(tcache["conv"][0], cache["conv"], 1e-5)
         _close(tcache["state"][0], cache["state"], 1e-5)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        trg.recurrent_block_apply(_stack(p), torch.from_numpy(x)[None],
-                                  cfg=_tcfg(jcfg), decode=True)
+    # the decode branch (item 16b) continues the S = 9 prefill's cache
+    x1 = _rng(3).normal(size=(2, 1, 64)).astype(np.float32)
+    want, cache = _jit(jrg.recurrent_block_apply, cfg=jcfg, decode=True)(
+        jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x1), cache=cache)
+    got, tcache = trg.recurrent_block_apply(
+        _stack(p), torch.from_numpy(x1)[None], cfg=_tcfg(jcfg), cache=tcache,
+        decode=True)
+    _close(got[0], want, 1e-5)
+    _close(tcache["conv"][0], cache["conv"], 1e-5)
+    _close(tcache["state"][0], cache["state"], 1e-5)
 
 
 # ------------------------------------------------------------ cross-attn
@@ -388,7 +405,7 @@ def test_decoder_forward_matches(name):
     want, _, want_aux = _jit(jdec.decoder_forward, cfg=jcfg, impl="naive")(
         jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(toks),
         image_embeds=None if img is None else jnp.asarray(img))
-    got, aux = tdec.decoder_forward(
+    got, _, aux = tdec.decoder_forward(
         _stack(p), torch.from_numpy(toks)[None], cfg=_tcfg(jcfg),
         image_embeds=None if img is None else torch.from_numpy(img)[None],
         impl="pallas")
