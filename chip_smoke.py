@@ -47,7 +47,16 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    q_offset 4,128 on the full cache of 4,161 slots and one on the
    wrapped ring of 4,096, each timed in float32 (the decode on the full
    cache in bfloat16 too) beside its bound, its plain version and
-   ``scaled_dot_product_attention`` without the softcap;
+   ``scaled_dot_product_attention`` without the softcap; then whisper's
+   serve shapes (whisper-small, 12 heads of 64, H = Hkv, batch 4): the
+   encoder's and the prefill's cross-attention over 1,500 frames
+   (non-causal), the prefill's causal self-attention over 1,500 tokens,
+   a decode step's self-attention at q_offset 1,500 on the full cache of
+   1,533 slots and its cross-attention over the 1,500 encoder keys, each
+   in float32 (2e-5) and bfloat16 (2e-2 of the plain output's largest
+   magnitude), two calls bit-equal, each timed in both beside its bound,
+   its plain version and ``scaled_dot_product_attention`` (no softcap:
+   the same function);
 6. the SSD intra-chunk kernel (K4) against its plain version: the JAX
    package's test shapes, the kernel's edges and the SSM path's shape
    (atol 1e-4), two calls bit-equal; kernel and plain times at the SSM
@@ -159,7 +168,8 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     1], weights summing to 1, the MoE fleet's aux positive; then (c)
     serving through ``models.api`` at ``reduced()``: qwen3-8b, gemma2-2b
     (its ring of 128 wraps at the fifth step), deepseek-v2, arctic,
-    recurrentgemma, mamba2 and llama-3.2-vision each prefill 2 prompts of
+    recurrentgemma, mamba2, llama-3.2-vision and whisper-small (against
+    frames of its ``encoder_seq_len`` 64) each prefill 2 prompts of
     124 tokens and decode 8 steps on the card and on the CPU, the same
     weights and tokens, ``impl="pallas"``: every step's logits within
     1e-4 with float32 caches, within 2e-2 of the largest logit with
@@ -175,6 +185,18 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     within 1e-4 of a full forward over the same tokens; (b) bfloat16,
     ``"pallas"``: prefill seconds, decode tokens a second, peak memory,
     K3 launches, finite logits;
+24. whisper-small served at its published widths
+    (``serve("whisper-small", full_config=True, batch=4,
+    prompt_len=1500, max_new_tokens=32)``: frames ``[4, 1500, 768]``, the
+    family's native encoder length, 263,454,720 parameters, caches of
+    1,533 slots): (a) float32 on the routes ``"pallas"`` (K3 on every
+    attention: 36 launches in the prefill, 24 a decode step, 780 in
+    all), ``"naive"`` and ``"blockwise"``, the last two teacher-forced on
+    the first's tokens: every step's logits within 1e-4 of the largest
+    logit, and within 1e-4 of ``model.apply`` (the full forward) over
+    the same frames and tokens; (b) bfloat16, ``"pallas"``: prefill
+    seconds, decode tokens a second, peak memory, K3 launches, finite
+    logits;
 20. the sharded fleet (``launch.mesh``): (a) massive, fog, async and stream
     once more unsharded and once on a one-rank NCCL mesh
     (``make_device_mesh()``, the fog path ``make_fog_mesh(1, 1)``), each
@@ -190,15 +212,15 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
 11. run last: the host time of each path's data generation, then the
-    five paths of phases 8-10, phases 15-17, 19 and 21 and phase 23
-    (b) again under the
+    five paths of phases 8-10, phases 15-17, 19 and 21 and phases 23
+    (b) and 24 (b) again under the
     CUDA activity tracer (wall, device-busy time, idle share, the
     kernels with the most device time, and the host seconds spent
     reading the trace), and phase 13's int8 run and phase 14 with host
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
 18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19,
-    21, 22 (the fleets), 23 and 20 (a), K2's segment-form launches of phase 19
+    21, 22 (the fleets), 23, 24 and 20 (a), K2's segment-form launches of phase 19
     apart, error, times, bound), and last the ``{"ok": true, "device":
     ...}`` line.
 
@@ -237,12 +259,15 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
 FP32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12             # H100 SXM bfloat16 on the tensor cores, dense
 
 
-def bound_ms(nbytes: float, flops: float) -> float:
+def bound_ms(nbytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS) -> float:
     """The least time of a function: the larger of its bytes over the memory
-    rate and its float32 operations over the peak rate."""
-    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+    rate and its operations over the peak rate for their type (float32
+    unless ``flops_per_s``)."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / flops_per_s) * 1e3
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
@@ -820,6 +845,19 @@ SERVE_ATTN = (
     ("serve decode (wrapped ring)", (4, 1, 4096, 8, 4, 256, False, None,
                                      50.0), 0),
 )
+# whisper-small served (phase 24): 4 requests, 12 heads of 64 (H = Hkv),
+# 1,500 frames and a prompt of 1,500 tokens, caches of 1,533 slots; no
+# softcap, so SDPA computes the same function
+WHISPER_ATTN = (
+    ("whisper encoder / prefill cross", (4, 1500, 1500, 12, 12, 64, False,
+                                         None, None), 0),
+    ("whisper prefill self", (4, 1500, 1500, 12, 12, 64, True, None, None),
+     0),
+    ("whisper decode self (full cache)", (4, 1, 1533, 12, 12, 64, True,
+                                          None, None), 1500),
+    ("whisper decode cross", (4, 1, 1500, 12, 12, 64, False, None, None),
+     0),
+)
 
 
 def causal_pairs(Sq, Skv, causal, window, q_offset):
@@ -835,7 +873,8 @@ def causal_pairs(Sq, Skv, causal, window, q_offset):
 
 def attn_bound(B, Sq, Skv, H, Hkv, d, causal=True, dv=None, window=None,
                q_offset=0, itemsize=4):
-    """K3's bound at one shape (float32 unless ``itemsize``): q read once,
+    """K3's bound at one shape (float32 unless ``itemsize``; 2 is bfloat16,
+    whose products the tensor cores' peak bounds): q read once,
     the keys and values that the mask can keep read once (causal: none
     past ``q_offset + Sq - 1``; with a window, none before ``q_offset -
     window + 1``), o written once; 2·d + 2·dv operations a kept (query,
@@ -850,9 +889,10 @@ def attn_bound(B, Sq, Skv, H, Hkv, d, causal=True, dv=None, window=None,
     nbytes = itemsize * (B * Sq * H * (d + dv) + B * keys * Hkv * (d + dv))
     flops = (2 * d + 2 * dv) * B * H * causal_pairs(Sq, Skv, causal, window,
                                                     q_offset)
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
+    rate = BF16_FLOPS if itemsize == 2 else FP32_FLOPS
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S >= flops / rate
           else "operations")
-    return bound_ms(nbytes, flops), nbytes, flops, by
+    return bound_ms(nbytes, flops, rate), nbytes, flops, by
 
 
 def attn_inputs(torch, gen, case, dtype=None):
@@ -934,8 +974,12 @@ def check_flash_attention_kernel(torch, k3):
         shapes.append(entry)
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    worst = max(worst, check_flash_attention_serve_shapes(torch, k3, gen,
-                                                          sdpa, shapes))
+    worst = max(worst, check_flash_attention_serve_shapes(
+        torch, k3, gen, sdpa, shapes, SERVE_ATTN,
+        time_bf16=lambda name: "full cache" in name))
+    worst = max(worst, check_flash_attention_serve_shapes(
+        torch, k3, gen, sdpa, shapes, WHISPER_ATTN,
+        time_bf16=lambda name: True))
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:82",
@@ -946,18 +990,20 @@ def check_flash_attention_kernel(torch, k3):
             "library_ms": shapes[0]["library_ms"], "shapes": shapes}
 
 
-def check_flash_attention_serve_shapes(torch, k3, gen, sdpa, shapes):
-    """Phase 5, the serve path's shapes (``SERVE_ATTN``): K3 against its
-    plain version in float32 (2e-5) and bfloat16 (2e-2 of the plain
-    output's largest magnitude: a diffuse decode over 4,161 keys gives
-    outputs of about 0.03, so an absolute limit would pass a wrong
-    kernel), two calls bit-equal; kernel, plain and ``scaled_dot_product_attention`` times
-    beside the bound (SDPA has no softcap: timed without one, the decode
-    on the full cache with a boolean mask of the keys up to q_offset), the
-    decode on the full cache in bfloat16 too.  Appends the entries to
-    ``shapes``; returns the largest float32 error."""
+def check_flash_attention_serve_shapes(torch, k3, gen, sdpa, shapes, cases,
+                                       time_bf16):
+    """Phase 5, the serve paths' shapes (``SERVE_ATTN``, ``WHISPER_ATTN``):
+    K3 against its plain version in float32 (2e-5) and bfloat16 (2e-2 of
+    the plain output's largest magnitude: a diffuse decode over 4,161
+    keys gives outputs of about 0.03, so an absolute limit would pass a
+    wrong kernel), two calls bit-equal; kernel, plain and
+    ``scaled_dot_product_attention`` times beside the bound in float32,
+    and in bfloat16 where ``time_bf16(name)`` (SDPA has no softcap: timed
+    without one, a decode on a full cache with a boolean mask of the keys
+    up to q_offset).  Appends the entries to ``shapes``; returns the
+    largest float32 error."""
     worst = 0.0
-    for name, case, q_offset in SERVE_ATTN:
+    for name, case, q_offset in cases:
         B, Sq, Skv, H, Hkv, d, causal, window, softcap = case
         kw = dict(causal=causal, window=window, softcap=softcap,
                   q_offset=q_offset)
@@ -982,7 +1028,7 @@ def check_flash_attention_serve_shapes(torch, k3, gen, sdpa, shapes):
                 worst = max(worst, err)
             else:   # the float32 entry of this shape, appended just before
                 shapes[-1].update(bf16_max_abs_err=err, bf16_limit=tol)
-            if dtype == torch.bfloat16 and "full cache" not in name:
+            if dtype == torch.bfloat16 and not time_bf16(name):
                 continue
             ms, how, host = timed(torch, lambda: k3.flash_attention(
                 q, k, v, **kw), "flash_attention_kernel")
@@ -998,10 +1044,12 @@ def check_flash_attention_serve_shapes(torch, k3, gen, sdpa, shapes):
             bound, nbytes, flops, by = attn_bound(
                 B, Sq, Skv, H, Hkv, d, causal, window=window,
                 q_offset=q_offset, itemsize=q.element_size())
+            lib_name = ("scaled_dot_product_attention" if softcap is None
+                        else "scaled_dot_product_attention (no softcap)")
             print(f"  K3 {name} q [{B}, {Sq}, {H}, {d}] k [{B}, {Skv}, "
                   f"{Hkv}, {d}] {str(dtype)[6:]} q_offset {q_offset}, "
-                  f"{how}: kernel {ms:.5f} ms, plain {plain:.5f} ms, "
-                  f"scaled_dot_product_attention (no softcap) {lib:.5f} ms, "
+                  f"causal {causal}, {how}: kernel {ms:.5f} ms, plain "
+                  f"{plain:.5f} ms, {lib_name} {lib:.5f} ms, "
                   f"bound {bound:.5f} ms by {by} ({nbytes / 1e9:.4f} GB, "
                   f"{flops / 1e9:.2f} GFLOP; {bound / ms:.3f} of it); "
                   f"wrapper per call with host overhead {host:.5f} ms")
@@ -1286,13 +1334,15 @@ class MoERecords:
 
 
 def zoo_params(torch, cfg, seed, D=2):
-    """D models of ``cfg`` stacked, on the CPU, from ``seed``, with the
-    ``ZERO_START`` leaves drawn uniform in [0.5, 1.5]."""
-    from repro_torch.models.decoder import decoder_init
+    """D models of ``cfg`` stacked (``models.api``'s init: the decoder's
+    or whisper's), on the CPU, from ``seed``, with the ``ZERO_START``
+    leaves drawn uniform in [0.5, 1.5]."""
+    from repro_torch.models.api import build_model
     from repro_torch.tree import tree_map, tree_map_with_path
     gen = torch.Generator().manual_seed(seed)
+    init = build_model(cfg).init
     params = tree_map(lambda *a: torch.stack(a),
-                      *(decoder_init(cfg, gen) for _ in range(D)))
+                      *(init(gen) for _ in range(D)))
 
     def draw(path, a):
         keys = path.split("/")
@@ -1402,12 +1452,14 @@ def run_zoo_fleets(torch, fed, reset, read):
 
 
 # phase 22 (c): prefill then decode, each family at reduced(); gemma2-2b's
-# window is 128 there, so a prompt of 124 wraps its ring at the fifth step
+# window is 128 there, so a prompt of 124 wraps its ring at the fifth step;
+# whisper attends to frames of its reduced encoder_seq_len, 64
 ZOO_DECODE = (("qwen3-8b", "qwen3-8b"), ("gemma2-2b", "gemma2-2b"),
               ("deepseek-v2", "deepseek-v2-236b"), ("arctic", "arctic-480b"),
               ("recurrentgemma", "recurrentgemma-9b"),
               ("mamba2", "mamba2-1.3b"),
-              ("llama-vision", "llama-3.2-vision-11b"))
+              ("llama-vision", "llama-3.2-vision-11b"),
+              ("whisper", "whisper-small"))
 DECODE_PROMPT, DECODE_STEPS = 124, 8
 
 
@@ -1415,7 +1467,8 @@ def check_zoo_decode_against_cpu(torch):
     """Phase 22 (c): each ``ZOO_DECODE`` family at ``reduced()`` through
     ``models.api`` as a server calls it: a prefill of 2 prompts of 124
     tokens, then 8 decode steps on the same tokens, on the card and on the
-    CPU (the same weights, tokens and image embeddings from the seed),
+    CPU (the same weights, tokens, image embeddings and frames from the
+    seed),
     ``impl="pallas"`` (K3 on the card, its plain version on the CPU):
     every step's logits within 1e-4 with float32 caches and within 2e-2 of
     the largest logit with the default bfloat16 caches; every MoE call's
@@ -1433,7 +1486,8 @@ def check_zoo_decode_against_cpu(torch):
         toks = torch.from_numpy(r.integers(
             0, cfg.vocab_size, (2, DECODE_PROMPT + DECODE_STEPS)))
         img = {k: torch.from_numpy(r.normal(size=shape).astype(np.float32))
-               for k, shape in model.extra_input_shapes(2, 0).items()}
+               for k, shape in model.extra_input_shapes(
+                   2, cfg.encoder_seq_len).items()}
         res = {}
         for cache_dtype in (torch.float32, torch.bfloat16):
             for dev in ("cuda", "cpu"):
@@ -1480,46 +1534,76 @@ SERVE_PARAMS = 2_614_341_888
 SERVE_K3 = 26 * SERVE["max_new_tokens"]   # a prefill and 31 decode steps
 
 
-def serve_run(torch, serve, reset, read, **kw):
-    """One ``serve("gemma2-2b", full_config=True, ...)`` call at ``SERVE``
-    on the card, its launches counted: ``(result, wall s, launches, peak
-    allocated GiB, peak reserved GiB)``."""
+# phase 24: whisper-small (src/repro_torch/configs/whisper_small.py,
+# arXiv:2212.04356) served at its published widths, 12 + 12 layers, with
+# frames of the family's native 1,500-frame encoder length; the JAX
+# package's whisper_init gives the same count (jax.eval_shape, on the CPU).
+# ``serve`` makes the frames [B, prompt_len, d_model], the reference's
+# rule, so 1,500 frames bring 1,500-token prompts: past whisper's
+# 448-token decoder context, a decoder length no whisper user sends.
+WHISPER = dict(batch=4, prompt_len=1500, max_new_tokens=32)
+WHISPER_PARAMS = 263_454_720
+# the prefill: 12 encoder, 12 decoder self and 12 cross; a decode step:
+# 12 self and 12 cross, 31 steps
+WHISPER_K3 = 36 + 24 * (WHISPER["max_new_tokens"] - 1)
+
+# the two served families: the traffic, the parameter count, K3's launches
+# in a "pallas" serve, and the teacher-forced routes held against it
+SERVED = {
+    "gemma2-2b": dict(shape=SERVE, n_params=SERVE_PARAMS, k3=SERVE_K3,
+                      routes=("naive", "auto")),
+    "whisper-small": dict(shape=WHISPER, n_params=WHISPER_PARAMS,
+                          k3=WHISPER_K3, routes=("naive", "blockwise")),
+}
+
+
+def serve_run(torch, serve, reset, read, arch, **kw):
+    """One ``serve(arch, full_config=True, ...)`` call at the arch's
+    ``SERVED`` shape on the card, its launches counted: ``(result, wall s,
+    launches, peak allocated GiB, peak reserved GiB)``."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset()
     t0 = time.perf_counter()
-    res = serve("gemma2-2b", full_config=True, device="cuda", **SERVE, **kw)
+    res = serve(arch, full_config=True, device="cuda",
+                **SERVED[arch]["shape"], **kw)
     torch.cuda.synchronize()
     wall, launches = time.perf_counter() - t0, read()
     return (res, wall, launches, torch.cuda.max_memory_allocated() / 2**30,
             torch.cuda.max_memory_reserved() / 2**30)
 
 
-def run_serve_path(torch, reset, read):
-    """Phase 23: gemma2-2b served as a user serves it (``launch.serve``),
-    4 prompts of 4,128 tokens (past the 4,096 window: the rings wrap; past
-    2,048 keys: ``"auto"`` prefills on the blockwise core), 32 new
-    tokens, caches of 4,161 slots.  (a) float32 weights, activations and
-    caches, the same weights and prompts on three routes: ``"pallas"``
-    (K3 on every prefill and decode attention), ``"naive"`` and
-    ``"auto"`` teacher-forced on the pallas run's tokens: every step's
-    logits within 1e-4 of the largest logit, and the pallas run's within
-    1e-4 of a full forward over the same tokens (one request at a time);
-    the share of equal greedy tokens.  (b) the published bfloat16,
-    ``"pallas"``: prefill seconds, decode tokens a second, peak memory,
-    K3 launches (``SERVE_K3``), logits finite and tokens in range.
-    Returns the summary and the main-path launches."""
+def run_serve_path(torch, reset, read, arch):
+    """Phases 23 and 24: ``arch`` served as a user serves it
+    (``launch.serve``) at its ``SERVED`` traffic.  Phase 23, gemma2-2b: 4
+    prompts of 4,128 tokens (past the 4,096 window: the rings wrap; past
+    2,048 keys: ``"auto"`` prefills on the blockwise core), 32 new tokens,
+    caches of 4,161 slots.  Phase 24, whisper-small: frames ``[4, 1500,
+    768]`` and prompts of 1,500 tokens (``serve`` ties the frames to the
+    prompt length), 32 new tokens, caches of 1,533 slots.  (a) float32
+    weights, activations and caches, the same weights, prompts and
+    modality inputs on ``"pallas"`` (K3 on every attention, the arch's
+    ``k3`` launches) and on the arch's other routes teacher-forced on the
+    pallas run's tokens (no launch): every step's logits within 1e-4 of
+    the largest logit, and the pallas run's within 1e-4 of ``model.apply``
+    over the same inputs and tokens (one request at a time); the share of
+    equal greedy tokens.  (b) the published bfloat16, ``"pallas"``: prefill
+    seconds, decode tokens a second, peak memory, K3 launches, logits
+    finite and tokens in range.  Returns the summary and the main-path
+    launches."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models.api import build_model
+    spec = SERVED[arch]
+    shape, want_params = spec["shape"], spec["n_params"]
     f32 = torch.float32
     runs, summary, all_launches = {}, {}, []
-    for impl in ("pallas", "naive", "auto"):
+    for impl in ("pallas",) + spec["routes"]:
         forced = None if impl == "pallas" else runs["pallas"].tokens
         res, wall, launches, peak, reserved = serve_run(
-            torch, serve, reset, read, impl=impl, dtype=f32, forced=forced,
-            keep_logits=True)
+            torch, serve, reset, read, arch, impl=impl, dtype=f32,
+            forced=forced, keep_logits=True)
         runs[impl] = res
         all_launches.append(launches)
         how = "" if forced is None else ", teacher-forced"
@@ -1528,12 +1612,12 @@ def run_serve_path(torch, reset, read):
               f"decode {res.tokens_per_s:.1f} tokens/s ({res.decode_s:.3f} "
               f"s); wall {wall:.3f} s; peak {peak:.2f} GiB allocated, "
               f"{reserved:.2f} reserved; launches {launches}")
-        if res.n_params != SERVE_PARAMS:
-            raise AssertionError(f"gemma2-2b has {res.n_params} parameters, "
-                                 f"not {SERVE_PARAMS}")
-        want_k3 = SERVE_K3 if impl == "pallas" else 0
+        if res.n_params != want_params:
+            raise AssertionError(f"{arch} has {res.n_params} parameters, "
+                                 f"not {want_params}")
+        want_k3 = spec["k3"] if impl == "pallas" else 0
         if launches["flash_attention"] != want_k3:
-            raise AssertionError(f"serve impl={impl}: K3 launched "
+            raise AssertionError(f"{arch} serve impl={impl}: K3 launched "
                                  f"{launches['flash_attention']} times, not "
                                  f"{want_k3}")
         summary[f"f32 {impl}"] = {
@@ -1543,7 +1627,7 @@ def run_serve_path(torch, reset, read):
             "launches": launches}
     base = runs["pallas"].logits
     scale = float(base.abs().max())
-    for impl in ("naive", "auto"):
+    for impl in spec["routes"]:
         d = (runs[impl].logits - base).abs()
         pre, dec = float(d[:, 0].max()) / scale, float(d[:, 1:].max()) / scale
         same = float((runs[impl].tokens == runs["pallas"].tokens)
@@ -1552,43 +1636,53 @@ def run_serve_path(torch, reset, read):
               f"{pre:.3e}, decode steps {dec:.3e} of the largest logit "
               f"{scale:.4f}; equal greedy tokens {same:.4f}")
         if not (pre <= 1e-4 and dec <= 1e-4):
-            raise AssertionError(f"serve {impl} vs pallas: {pre}, {dec}")
+            raise AssertionError(f"{arch} serve {impl} vs pallas: {pre}, "
+                                 f"{dec}")
         summary[f"f32 {impl}"].update(rel_err_prefill=pre, rel_err_decode=dec,
                                       equal_tokens=same)
-    cfg = replace(get_config("gemma2-2b"), param_dtype=f32, dtype=f32)
+    # serve's weights come from seed 0 and its modality inputs from seed 2
+    cfg = replace(get_config(arch), param_dtype=f32, dtype=f32)
     model = build_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    extras = {k: torch.randn(s, generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+        for k, s in model.extra_input_shapes(shape["batch"],
+                                             shape["prompt_len"]).items()}
     toks = torch.cat([runs["pallas"].prompts, runs["pallas"].tokens[:, :-1]],
                      dim=1)
-    P = SERVE["prompt_len"]
+    P = shape["prompt_len"]
     worst = 0.0
     with torch.no_grad():
-        for b in range(SERVE["batch"]):
-            full, _ = model.apply(params, toks[b:b + 1], impl="pallas")
+        for b in range(shape["batch"]):
+            full, _ = model.apply(
+                params, toks[b:b + 1], impl="pallas",
+                extras={k: e[b:b + 1] for k, e in extras.items()} or None)
             worst = max(worst, float((full[0, P - 1:] - base[b]).abs().max()))
             del full
-    del params
+    del params, extras
     worst /= scale
-    print(f"  (a) decode vs the full forward over the same {toks.shape[1]} "
-          f"tokens: {worst:.3e} of the largest logit")
+    print(f"  (a) decode vs the full forward over the same inputs and "
+          f"{toks.shape[1]} tokens: {worst:.3e} of the largest logit")
     if not worst <= 1e-4:
-        raise AssertionError(f"serve decode vs full forward: {worst}")
+        raise AssertionError(f"{arch} serve decode vs full forward: {worst}")
     summary["decode_vs_forward"] = worst
     del runs, base
     res, wall, launches, peak, reserved = serve_run(
-        torch, serve, reset, read, impl="pallas", keep_logits=True)
+        torch, serve, reset, read, arch, impl="pallas", keep_logits=True)
     all_launches.append(launches)
     ok = (bool(torch.isfinite(res.logits.float()).all())
-          and 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 256000)
+          and 0 <= int(res.tokens.min())
+          and int(res.tokens.max()) < cfg.vocab_size)
     print(f"  (b) bfloat16, impl='pallas': prefill {res.prefill_s:.3f} s, "
           f"decode {res.tokens_per_s:.1f} tokens/s ({res.decode_s:.3f} s for "
-          f"{SERVE['max_new_tokens']} tokens of {SERVE['batch']} requests); "
+          f"{shape['max_new_tokens']} tokens of {shape['batch']} requests); "
           f"wall {wall:.3f} s; peak {peak:.2f} GiB allocated, "
           f"{reserved:.2f} reserved; K3 launches "
           f"{launches['flash_attention']}; logits finite and tokens in "
           f"range: {ok}; request 0: {res.tokens[0, :16].tolist()}")
-    if not ok or launches["flash_attention"] != SERVE_K3:
-        raise AssertionError(f"serve bf16: ok {ok}, launches {launches}")
+    if not ok or launches["flash_attention"] != spec["k3"]:
+        raise AssertionError(f"{arch} serve bf16: ok {ok}, launches "
+                             f"{launches}")
     summary["bf16 pallas"] = {
         "wall_s": wall, "prefill_s": res.prefill_s, "decode_s": res.decode_s,
         "tokens_per_s": res.tokens_per_s, "peak_gib": peak,
@@ -3246,7 +3340,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 23: gemma2-2b served at full depth (launch.serve, 4 x "
           "4,128-token prompts, 32 new tokens)")
-    serve_path, serve_launches = run_serve_path(torch, reset, read)
+    serve_path, serve_launches = run_serve_path(torch, reset, read,
+                                                "gemma2-2b")
+    torch.cuda.empty_cache()
+    phase("phase 24: whisper-small served at its published widths "
+          "(launch.serve, 4 x 1,500 frames and 1,500-token prompts, 32 new "
+          "tokens)")
+    whisper_path, whisper_launches = run_serve_path(torch, reset, read,
+                                                    "whisper-small")
     torch.cuda.empty_cache()
     phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
           "async, stream), then massive split over two processes on gloo")
@@ -3297,7 +3398,10 @@ def main() -> int:
             scenario="stream", num_devices=256, rounds=8)),
         ("serve (bf16, pallas)", lambda: serve(
             "gemma2-2b", full_config=True, device="cuda", impl="pallas",
-            **SERVE)))
+            **SERVE)),
+        ("whisper serve (bf16, pallas)", lambda: serve(
+            "whisper-small", full_config=True, device="cuda", impl="pallas",
+            **WHISPER)))
     path_profiles = {}
     for name, fn in profiled:
         torch.cuda.reset_peak_memory_stats()
@@ -3337,6 +3441,7 @@ def main() -> int:
                     *(v[1] for v in codecs.values()), b_int8[1],
                     hetero[1], churn[1], async_path[1], stream_path[1],
                     *(v[1] for v in zoo_fleets.values()), *serve_launches,
+                    *whisper_launches,
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -3369,6 +3474,7 @@ def main() -> int:
                                  "telemetry": stream_path[2]},
                       "sharded": sharded, "zoo": zoo,
                       "zoo_decode": zoo_decode, "serve": serve_path,
+                      "whisper_serve": whisper_path,
                       "zoo_fleets": {k: {"wall_s": w, "launches": n}
                                      for k, (w, n) in zoo_fleets.items()},
                       "k2_lm_trees": k2_lm,

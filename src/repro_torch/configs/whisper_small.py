@@ -2,8 +2,8 @@
 d_model 768 / 12H (kv 12) / d_ff 3072 / vocab 51865. Conv/mel frontend is
 STUBBED (precomputed frame embeddings); the assigned 32k shapes exceed the
 family's native 1500-frame/448-token spec and are lowered mechanically.
-The port holds the configuration only: the encoder-decoder model is
-ROADMAP.md Queue 1 item 16c."""
+The model is ``repro_torch.models.whisper``, served through
+``models.api`` and ``launch.serve``."""
 import torch
 
 from repro_torch.models.config import ModelConfig

@@ -20,7 +20,7 @@ without ``device="cpu"`` the mesh raises, as ``resolve_device`` does.
 
 The reference's ``make_auto_mesh``, ``use_mesh``, ``make_production_mesh``,
 ``make_debug_mesh``, ``batch_axes`` and its hardware constants serve the
-model-parallel launch tools (ROADMAP items 16c and 17) and are not here.
+model-parallel launch tools (ROADMAP item 17) and are not here.
 """
 from __future__ import annotations
 

@@ -3,13 +3,16 @@
 ``serve(arch, ..., device="cpu")`` from Python.
 
 Batched request serving: prefill the prompt batch, then step the decode
-loop against the per-family KV, latent and recurrent caches
-(``models.api``).  Without ``--full-config`` it serves the family's
-``reduced()`` config, as the reference does on a CPU.
+loop against the per-family KV, latent and recurrent caches, or
+whisper's self and cross caches (``models.api``).  Without
+``--full-config`` it serves the family's ``reduced()`` config, as the
+reference does on a CPU.
 
-Weights, prompts, image embeddings and samples come from
-``torch.Generator``s seeded from ``seed`` (weights at ``seed``, prompts at
-``seed + 1``, image embeddings at ``seed + 2``, sampling at ``seed + 3``),
+Weights, prompts, the modality inputs (``extra_input_shapes``: image
+embeddings, or whisper's frames ``[batch, prompt_len, d_model]``, the
+reference's rule) and samples come from ``torch.Generator``s seeded from
+``seed`` (weights at ``seed``, prompts at ``seed + 1``, the modality
+inputs at ``seed + 2``, sampling at ``seed + 3``),
 where the reference splits JAX keys 0-3: other bits, the same
 distributions.  Greedy decoding (``temperature`` 0) draws nothing at
 decode time and is the case the parity checks hold.

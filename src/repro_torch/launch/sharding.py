@@ -31,7 +31,7 @@ them).
 
 The reference's parameter and cache rules (``spec_for_path``,
 ``param_pspecs``, ``param_shardings``, ``batch_spec``, ``cache_pspec(s)``)
-serve the model-parallel launch tools (ROADMAP item 16c) and are not
+serve the model-parallel launch tools (ROADMAP item 17) and are not
 here.
 """
 from __future__ import annotations

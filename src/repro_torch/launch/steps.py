@@ -1,6 +1,6 @@
 """Step factories (``repro.launch.steps`` ported, the serving half):
 ``make_prefill_step`` and ``make_decode_step``.  The train, federated and
-score steps are ROADMAP.md Queue 1 item 16c."""
+score steps are ROADMAP.md Queue 1 item 16d."""
 from __future__ import annotations
 
 import torch

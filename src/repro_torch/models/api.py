@@ -1,19 +1,21 @@
-"""Unified model API (``repro.models.api`` ported, the decoder half):
-``build_model(cfg)`` → a ``Model`` with init / apply / prefill /
-decode_step.
+"""Unified model API (``repro.models.api`` ported): ``build_model(cfg)``
+→ a ``Model`` with init / apply / prefill / decode_step, for the
+decoder families and for whisper (``family="encdec"``).
 
 A ``Model`` speaks for ONE model, as the reference's does: params are
-``decoder_init``'s tree, tokens ``[B, S]``, caches the reference's tree
-(``decoder_caches_init``).  Each call stacks them over a device axis of
-one (views, no copies) for ``decoder_forward`` and hands back the
-unstacked results.  ``decode_step`` writes the token into the caches it
-is given, in place, and returns them.
+``decoder_init``'s or ``whisper_init``'s tree, tokens ``[B, S]``, caches
+the reference's tree (``decoder_caches_init``,
+``whisper_caches_init``).  Each call stacks them over a device axis of
+one (views, no copies) for ``models.decoder`` or ``models.whisper`` and
+hands back the unstacked results.  ``decode_step`` takes ``position``
+as an int or a 0-dim tensor, reads it once on the host, writes the
+token into the caches it is given, in place, and returns them.
 
 ``impl`` on ``apply``, ``prefill`` and ``decode_step`` chooses among the
 reference's attention routes (``nn.attention``): ``"pallas"`` puts the
 flash-attention kernel on the serve path.  ``extras`` carries the
-modality inputs (``image_embeds`` of the VLM family,
-``extra_input_shapes``).  Whisper (``family="encdec"``) is not ported.
+modality inputs (``extra_input_shapes``): ``image_embeds`` of the VLM
+family, whisper's ``frames``.
 """
 from __future__ import annotations
 
@@ -22,12 +24,11 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch.models import whisper as W
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.decoder import (decoder_caches_init, decoder_forward,
                                         decoder_init)
 from repro_torch.tree import tree_map
-
-_UNPORTED = "ROADMAP.md Queue 1 item 16"
 
 
 @dataclass(frozen=True)
@@ -51,9 +52,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"the encoder-decoder family (whisper) is not ported yet: "
-            f"{_UNPORTED}")
+        return _build_whisper(cfg)
     return _build_decoder(cfg)
 
 
@@ -100,6 +99,43 @@ def _build_decoder(cfg: ModelConfig) -> Model:
                     dtype=torch.bfloat16, device=None):
         return decoder_caches_init(cfg, batch, max_len, dtype=dtype,
                                    device=device)
+
+    return Model(cfg=cfg, init=init, apply=apply, prefill=prefill,
+                 decode_step=decode_step, caches_init=caches_init)
+
+
+def _build_whisper(cfg: ModelConfig) -> Model:
+    def init(generator: torch.Generator):
+        return W.whisper_init(cfg, generator)
+
+    def apply(params, tokens, *, generator=None, deterministic=True,
+              extras=None, impl="auto"):
+        p = _stacked(params)
+        enc_out = W.encode(p, extras["frames"][None], cfg=cfg, impl=impl)
+        logits = W.decode_train(p, tokens[None], enc_out, cfg=cfg,
+                                impl=impl)
+        return logits[0], torch.zeros((), device=logits.device)
+
+    def prefill(params, tokens, *, extras=None, max_cache_len: int,
+                cache_dtype=torch.bfloat16, impl="auto"):
+        logits, caches = W.prefill(
+            _stacked(params), tokens[None], extras["frames"][None], cfg=cfg,
+            max_cache_len=max_cache_len, cache_dtype=cache_dtype, impl=impl)
+        return logits[0], tree_map(lambda a: a[0], caches)
+
+    def decode_step(params, token, caches, *, position, extras=None,
+                    impl="auto"):
+        logits, _ = W.decode_step(_stacked(params), token[None],
+                                  _stacked(caches), cfg=cfg,
+                                  position=int(position), impl=impl)
+        return logits[0], caches
+
+    def caches_init(batch: int, max_len: int, *, extras_shape=None,
+                    dtype=torch.bfloat16, device=None):
+        enc_len = (extras_shape["frames"][1] if extras_shape
+                   else cfg.encoder_seq_len)
+        return W.whisper_caches_init(cfg, batch, max_len, enc_len,
+                                     dtype=dtype, device=device)
 
     return Model(cfg=cfg, init=init, apply=apply, prefill=prefill,
                  decode_step=decode_step, caches_init=caches_init)

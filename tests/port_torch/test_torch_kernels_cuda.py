@@ -395,6 +395,41 @@ def test_flash_attention_kernel_is_bitwise_repeatable(cuda, case, dtype):
         assert torch.equal(first, k3.flash_attention(q, k, v, **kw))
 
 
+# whisper-small served (12 heads of 64, H = Hkv), at a batch of 1: the
+# encoder's and the prefill's cross-attention over 1,500 frames, the
+# prefill's causal self-attention, a decode step's self-attention at
+# q_offset 1,500 on the full cache of 1,533 slots, and its
+# cross-attention over the 1,500 encoder keys
+WHISPER_CASES = [
+    (1, 1500, 1500, 12, 12, 64, False, None, None, 0),
+    (1, 1500, 1500, 12, 12, 64, True, None, None, 0),
+    (1, 1, 1533, 12, 12, 64, True, None, None, 1500),
+    (1, 1, 1500, 12, 12, 64, False, None, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", WHISPER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_at_whisper_shapes(cuda, case, dtype):
+    """K3 against its plain version at whisper-small's shapes: 2e-5 in
+    float32; in bfloat16 2e-2 of the plain output's largest magnitude (a
+    diffuse attention over 1,500 keys gives outputs far below 1, so an
+    absolute limit would pass a wrong kernel); two calls bit-equal."""
+    B, Sq, Skv, H, Hkv, d, causal, window, softcap, q_offset = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((B, Sq, H, d), (B, Skv, Hkv, d), (B, Skv, Hkv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    before = k3.launches
+    got = k3.flash_attention(q, k, v, **kw)
+    assert k3.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, k3.flash_attention(q, k, v, **kw))
+    want = k3.flash_attention_plain(q, k, v, **kw).float()
+    tol = 2e-2 * float(want.abs().max()) if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("positions", [(30, 31), (62, 63, 64, 70)])
 def test_attention_core_kernel_decode_matches_the_positional_mask(
         cuda, positions):

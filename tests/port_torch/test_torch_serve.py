@@ -39,6 +39,7 @@ from repro.nn import attention as jatt  # noqa: E402
 from repro.nn import mla as jmla  # noqa: E402
 from repro.nn import rglru as jrg  # noqa: E402
 from repro.nn import ssm as jssm  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import config as tconfig  # noqa: E402
@@ -437,7 +438,8 @@ def test_prefill_then_decode_matches_reference(name, cache_dtype):
 def test_model_api_decode_step_takes_a_tensor_position():
     """``build_model``'s prefill and decode_step on one model (no device
     axis), ``position`` as a 0-dim tensor, ``caches_init``'s tree equal to
-    the reference's; the encoder-decoder family still raises."""
+    the reference's; the same for the encoder-decoder family (whisper,
+    frames from the seed)."""
     jcfg = _family("gemma_local_global")
     model = build_model(_tcfg(jcfg))
     params = model.init(torch.Generator().manual_seed(55))
@@ -453,8 +455,23 @@ def test_model_api_decode_step_takes_a_tensor_position():
     assert same is caches
     _close(last[:, 0], full[:, 3], 1e-5)
     _close(logits[:, 0], full[:, 4], 1e-5)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        build_model(tconfig.ModelConfig(family="encdec"))
+    wcfg = get_config("whisper-small").reduced(vocab_size=VOCAB)
+    model = build_model(wcfg)
+    params = model.init(torch.Generator().manual_seed(57))
+    extras = {"frames": torch.from_numpy(_rng(58).normal(
+        size=(2, wcfg.encoder_seq_len, wcfg.d_model)).astype(np.float32))}
+    full, aux = model.apply(params, toks, extras=extras)
+    assert full.shape == (2, 5, VOCAB) and float(aux) == 0.0
+    last, caches = model.prefill(params, toks[:, :3], extras=extras,
+                                 max_cache_len=8, cache_dtype=torch.float32,
+                                 impl="pallas")
+    _close(last[:, 0], full[:, 2], 1e-5)
+    for k in (3, 4):
+        logits, same = model.decode_step(params, toks[:, k:k + 1], caches,
+                                         position=torch.tensor(k),
+                                         extras=extras, impl="pallas")
+        assert same is caches
+        _close(logits[:, 0], full[:, k], 1e-5)
 
 
 def test_serve_on_the_cpu(capsys, monkeypatch):
