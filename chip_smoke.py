@@ -17,8 +17,10 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
    vocabularies C = 32768, 50288 and 73456 in float32 and bfloat16, one
    device's rows at C = 50288 and the ragged C = 50287
    (atol 1e-4: entropies near 10 summed over 5e4 classes in another
-   order), and C = 4099 (1e-5); two calls bit-equal in every case; the
-   LM cases' times beside their byte bound;
+   order), C = 4099 (1e-5), and phase 25's acquisition step at
+   gemma2-2b's vocabulary, ``[4, 1024, 256000]`` in float32 and
+   bfloat16 (1e-4); two calls bit-equal in every case; the LM cases'
+   times beside their byte bound and their plain version's;
 4. the fused-aggregation kernel (K2) against its plain version: D = 256
    devices × the 61,706 LeNet parameters, flat preweighted (the engine's
    mode), plus every other mode (atol 1e-5) and the compressed rounds'
@@ -197,6 +199,25 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     the same frames and tokens; (b) bfloat16, ``"pallas"``: prefill
     seconds, decode tokens a second, peak memory, K3 launches, finite
     logits;
+25. the training half (``launch.train``, ``launch.steps``,
+    ``core.selection``): (a) ``train("gemma2-2b", full_config=True,
+    steps=6, batch=4, seq=128)`` (2,614,341,888 parameters, adamw, the
+    reference's data): every loss finite, seconds a step, peak memory, no
+    kernel launched, then the host's stream sampling at that batch alone;
+    (b) ``train("whisper-small", full_config=True, steps=10, batch=4,
+    seq=128, groups=2, sync_every=2, ckpt_dir=...)`` (263,454,720
+    parameters): 5 syncs, both groups' params bit-equal after the last,
+    the round-10 ``save_round`` checkpoint reloaded bit-equal to group
+    0's, then the host's stream sampling alone; (c) at ``reduced()`` on the card against the CPU, the same
+    weights and batches: 3 ``make_train_step`` steps of gemma2-2b (adamw,
+    ``clip_norm`` 0.1, 2 microbatches) and of deepseek-v2-236b
+    (adafactor, the MoE aux), 2 ``make_federated_train_step`` steps of 2
+    groups then ``federated_sync``, one ``make_score_step`` (T = 4) with
+    ``select_batch``: losses within 1e-5 relative, scores within 1e-5,
+    the picked indices equal, params within 1e-4; (d) the acquisition step at full width on (a)'s params:
+    ``make_score_step(mc_samples=4)`` over 8 candidates of 128 tokens
+    from ``SyntheticLMStream`` (K1 exactly once a step, on ``[4, 1024,
+    256000]``), ``select_batch`` keeping 4, one train step on them;
 20. the sharded fleet (``launch.mesh``): (a) massive, fog, async and stream
     once more unsharded and once on a one-rank NCCL mesh
     (``make_device_mesh()``, the fog path ``make_fog_mesh(1, 1)``), each
@@ -212,15 +233,17 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
 11. run last: the host time of each path's data generation, then the
-    five paths of phases 8-10, phases 15-17, 19 and 21 and phases 23
-    (b) and 24 (b) again under the
+    five paths of phases 8-10, phases 15-17, 19 and 21, phases 23
+    (b) and 24 (b), two train steps of phase 25 (a) (``launch.train.
+    train`` itself) and one score step of phase 25 (d) again under the
     CUDA activity tracer (wall, device-busy time, idle share, the
     kernels with the most device time, and the host seconds spent
     reading the trace), and phase 13's int8 run and phase 14 with host
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
 18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19,
-    21, 22 (the fleets), 23, 24 and 20 (a), K2's segment-form launches of phase 19
+    21, 22 (the fleets), 23, 24, 25 and 20 (a), K2's segment-form
+    launches of phase 19
     apart, error, times, bound), and last the ``{"ok": true, "device":
     ...}`` line.
 
@@ -475,8 +498,9 @@ def check_acquisition_kernel(torch, k1):
 
 # phase 3, LM widths: the fused LM rounds' MC scoring call [D, T=4, W=32,
 # C] at the three vocabularies (D = 8 on paths A and B, 4 on path C), one
-# device of it (fewer rows, so more slices a row), and class counts that
-# take scalar loads
+# device of it (fewer rows, so more slices a row), class counts that
+# take scalar loads, and phase 25 (d)'s acquisition step: T = 4 passes
+# over 8 candidates of 128 tokens at gemma2-2b's 256,000 words
 K1_LM_CASES = [("path C", (4, 4, 32, 73456), "float32"),
                ("path C", (4, 4, 32, 73456), "bfloat16"),
                ("path B", (8, 4, 32, 32768), "float32"),
@@ -486,7 +510,9 @@ K1_LM_CASES = [("path C", (4, 4, 32, 73456), "float32"),
                ("one device", (4, 32, 50288), "float32"),
                ("ragged", (8, 4, 32, 50287), "float32"),
                ("ragged", (4, 32, 4099), "float32"),
-               ("ragged", (4, 32, 4099), "bfloat16")]
+               ("ragged", (4, 32, 4099), "bfloat16"),
+               ("acquisition step", (4, 1024, 256000), "float32"),
+               ("acquisition step", (4, 1024, 256000), "bfloat16")]
 
 
 def check_acquisition_lm_widths(torch, k1):
@@ -1320,7 +1346,7 @@ class MoERecords:
             _, probs, _, experts = moe.route(params, x, cfg)
             top = torch.sort(probs, dim=-1, descending=True)[0]
             K, E = cfg.experts_top_k, cfg.n_experts
-            gap = float((top[..., K - 1] - top[..., K]).min())
+            gap = float((top[..., K - 1] - top[..., K]).min().detach())
             # a group (device, row) drops what an expert gets past C
             load = torch.nn.functional.one_hot(experts, E).sum(dim=(2, 3))
             drops = (load - moe.capacity(cfg, x.shape[2])).clamp(min=0)
@@ -1688,6 +1714,333 @@ def run_serve_path(torch, reset, read, arch):
         "tokens_per_s": res.tokens_per_s, "peak_gib": peak,
         "reserved_gib": reserved, "launches": launches}
     return summary, all_launches
+
+
+# phase 25: the training half.  (a) gemma2-2b trained at its published
+# widths and full depth through launch.train (SERVE_PARAMS parameters,
+# adamw); (b) whisper-small's federated schedule at published widths,
+# two groups syncing every 2nd step, a checkpoint at step 10; (d) the
+# acquisition step at gemma2-2b's full vocabulary: 8 candidates of 128
+# tokens scored with T = 4 (K1 on [4, 1024, 256000] float32), 4 kept
+TRAIN = dict(steps=6, batch=4, seq=128, groups=1)
+WHISPER_TRAIN = dict(steps=10, batch=4, seq=128, groups=2, sync_every=2)
+ACQUIRE = dict(candidates=8, seq=128, mc_samples=4, keep=4)
+
+
+def run_train_path(torch, reset, read):
+    """Phase 25 (a) and (b): ``launch.train.train`` as a user calls it, on
+    the card.  (a) gemma2-2b, ``TRAIN``: the parameter count, every step's
+    loss finite, seconds a step, peak memory, no kernel launched (the
+    train step runs ``"auto"``, naive attention at 128 tokens).  (b)
+    whisper-small, ``WHISPER_TRAIN``: a sync every 2nd step, both groups'
+    params bit-equal after the last (step 10's), and the round-10
+    checkpoint (``save_round``) loaded back (``load_round``) bit-equal to
+    group 0's params.  After each run, the host's side of a step alone:
+    the arch's ``SyntheticLMStream`` built and sampled at the run's batch
+    as ``train`` samples it.  Returns (summary, gemma2-2b's trained
+    params, launches of both runs)."""
+    import io
+    import math
+    import tempfile
+    from contextlib import redirect_stdout
+    from repro_torch.checkpoint import load_round
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm import SyntheticLMStream
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_items, tree_leaves
+
+    def host_data(arch, batch, seq, **_):
+        vocab = get_config(arch).vocab_size
+        t0 = time.perf_counter()
+        stream = SyntheticLMStream(vocab=vocab, seed=0)
+        built, sampled = time.perf_counter() - t0, []
+        for step in range(3):
+            t0 = time.perf_counter()
+            stream.sample(batch, seq, seed=1000 * step)
+            sampled.append(time.perf_counter() - t0)
+        print(f"  {arch} host data alone (SyntheticLMStream, vocab {vocab}):"
+              f" built in {built:.4f} s; sample({batch}, {seq}) "
+              f"{[round(t, 4) for t in sampled]} s")
+        return {"stream_build_s": built, "sample_s": sampled}
+
+    def run(arch, **kw):
+        torch.cuda.empty_cache()
+        reset()
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()) as out:
+            res = train(arch, full_config=True, device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, read()
+        print(out.getvalue(), end="")
+        losses = [l for row in res.losses for l in row]
+        later = res.step_s[1:]
+        print(f"  {arch}: {res.n_params:,} parameters; losses "
+              f"{[[round(l, 5) for l in row] for row in res.losses]}; "
+              f"seconds a step {[round(t, 4) for t in res.step_s]} (after "
+              f"the first: mean {sum(later) / len(later):.4f}); wall "
+              f"{wall:.3f} s; peak {res.peak_gib:.2f} GiB allocated, "
+              f"{torch.cuda.max_memory_reserved() / 2**30:.2f} reserved; "
+              f"launches {launches}")
+        if not all(math.isfinite(l) for l in losses):
+            raise AssertionError(f"{arch} train: a loss is not finite")
+        if any(launches.values()):
+            raise AssertionError(f"{arch} train launched {launches}")
+        return res, out.getvalue().count("[sync]"), {
+            "wall_s": wall, "losses": res.losses, "step_s": res.step_s,
+            "step_s_after_first": sum(later) / len(later),
+            "peak_gib": res.peak_gib, "n_params": res.n_params,
+            "launches": launches, "host_data": host_data(arch, **kw)}
+
+    summary = {}
+    res, _, summary["gemma2-2b"] = run("gemma2-2b", **TRAIN)
+    if res.n_params != SERVE_PARAMS:
+        raise AssertionError(f"gemma2-2b trains {res.n_params} parameters, "
+                             f"not {SERVE_PARAMS}")
+    gemma = res.params[0]
+    del res
+    with tempfile.TemporaryDirectory() as ckpt:
+        res, syncs, summary["whisper-small"] = run(
+            "whisper-small", ckpt_dir=ckpt, **WHISPER_TRAIN)
+        saved = load_round(ckpt, WHISPER_TRAIN["steps"], device="cuda")
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(res.params[0]), tree_leaves(res.params[1]), strict=True))
+    pairs = list(zip(tree_items(saved["fog_model"]),
+                     tree_items(res.params[0])))
+    reloaded = (len(pairs) == len(tree_leaves(res.params[0])) and all(
+        pa == pb and a.dtype == b.dtype and torch.equal(a, b)
+        for (pa, a), (pb, b) in pairs))
+    print(f"  whisper-small: {syncs} syncs; groups bit-equal after the "
+          f"last: {equal}; the round-{WHISPER_TRAIN['steps']} checkpoint "
+          f"reloads bit-equal: {reloaded} (metadata {saved['metadata']})")
+    if res.n_params != WHISPER_PARAMS:
+        raise AssertionError(f"whisper-small trains {res.n_params} "
+                             f"parameters, not {WHISPER_PARAMS}")
+    if (syncs != WHISPER_TRAIN["steps"] // WHISPER_TRAIN["sync_every"]
+            or not equal or not reloaded):
+        raise AssertionError(f"whisper-small federated: {syncs} syncs, "
+                             f"groups equal {equal}, reloaded {reloaded}")
+    summary["whisper-small"].update(syncs=syncs, synced_equal=equal,
+                                    reloaded=reloaded)
+    del res, saved, pairs
+    return summary, gemma, [summary[a]["launches"] for a in summary]
+
+
+def check_train_against_cpu(torch):
+    """Phase 25 (c): the train, federated and score steps at ``reduced()``
+    (float32), the same weights (``zoo_params``, zero-start leaves drawn)
+    and batches on the card and on the CPU: 3 ``make_train_step`` steps of
+    gemma2-2b (adamw, ``clip_norm`` 0.1 so the clip bites, 2
+    microbatches) and of deepseek-v2-236b (adafactor, the MoE aux in the
+    loss; every MoE call's capacity drops equal), 2 ``make_federated_
+    train_step`` steps of 2 gemma2-2b groups then ``federated_sync``, and
+    one ``make_score_step`` (T = 4) with ``select_batch`` keeping 4 of 8.
+    Losses within 1e-5 relative, scores within 1e-5, the picked indices
+    equal, params within 1e-4.  Returns the largest errors."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import selection
+    from repro_torch.launch import steps as S
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.tree import tree_items, tree_map
+
+    lr = 1e-3
+    on = lambda dev, tree: tree_map(lambda a: a.to(dev), tree)
+
+    def batch(cfg, seed, B=4, T=32):
+        r = np.random.default_rng(seed)
+        return {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (B, T))
+                                    .astype(np.int32))
+                for k in ("tokens", "targets")}
+
+    def leaves(tree):
+        return [(path, a.detach().float().cpu().numpy())
+                for path, a in tree_items(tree)]
+
+    def compare(name, card, cpu):
+        """``card`` and ``cpu``: (losses, params) of the same run."""
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+        got, want = leaves(card[1]), leaves(cpu[1])
+        if [p for p, _ in got] != [p for p, _ in want]:
+            raise AssertionError(f"{name}: card and CPU trees differ")
+        err = max(float(np.abs(a - b).max())
+                  for (_, a), (_, b) in zip(got, want))
+        print(f"  (c) {name}: losses card {[round(l, 6) for l in card[0]]}, "
+              f"largest relative gap {rel:.3e}; params max_abs_err "
+              f"{err:.3e}")
+        if not (rel <= 1e-5 and err <= 1e-4):
+            raise AssertionError(f"{name}: card vs CPU losses {rel}, "
+                                 f"params {err}")
+        return {"loss_rel_err": rel, "params_err": err}
+
+    out = {}
+    for arch, opt, kw in (
+            ("gemma2-2b", lambda: adamw(lr),
+             dict(clip_norm=0.1, num_microbatches=2)),
+            ("deepseek-v2-236b", lambda: adafactor(lr), {})):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        p0 = tree_map(lambda a: a[0], zoo_params(torch, cfg, 31, D=1))
+        runs, drops = {}, {}
+        for dev in ("cuda", "cpu"):
+            o = opt()
+            step = S.make_train_step(model, o, **kw)
+            params = on(dev, p0)
+            state, losses = o.init(params), []
+            with MoERecords(torch) as rec:
+                for i in range(3):
+                    params, state, m = step(params, state,
+                                            on(dev, batch(cfg, 40 + i)), i)
+                    losses.append(float(m["loss"]))
+                    if "clip_norm" in kw and not float(m["grad_norm"]) > 0.1:
+                        raise AssertionError(f"{arch}: the clip did not bite")
+            runs[dev], drops[dev] = (losses, params), [c[1] for c in
+                                                       rec.calls]
+        if drops["cuda"] != drops["cpu"]:
+            raise AssertionError(f"{arch}: capacity drops {drops}")
+        out[arch] = compare(f"{arch} train step {kw}", runs["cuda"],
+                            runs["cpu"])
+        out[arch]["moe_calls"] = len(drops["cuda"])
+    cfg = get_config("gemma2-2b").reduced()
+    model = build_model(cfg)
+    p0 = tree_map(lambda *a: torch.stack(a),
+                  *(tree_map(lambda a: a[0], zoo_params(torch, cfg, s, D=1))
+                    for s in (32, 33)))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        o = adamw(lr)
+        fed = S.make_federated_train_step(model, o, clip_norm=0.1)
+        params = on(dev, p0)
+        state = tree_map(lambda *a: torch.stack(a), *(
+            o.init(tree_map(lambda a: a[g], params)) for g in range(2)))
+        losses = []
+        for i in range(2):
+            b = [batch(cfg, 50 + 2 * i + g) for g in range(2)]
+            params, state, m = fed(params, state, on(dev, tree_map(
+                lambda *a: torch.stack(a), *b)), i)
+            losses += m["loss"].tolist()
+        runs[dev] = (losses, S.federated_sync(params))
+    out["federated"] = compare("gemma2-2b federated step x 2 groups + sync",
+                               runs["cuda"], runs["cpu"])
+    scores = {}
+    cand = batch(cfg, 60, B=8)
+    for dev in ("cuda", "cpu"):
+        score = S.make_score_step(model, mc_samples=4)
+        got = score(on(dev, tree_map(lambda a: a[0], p0)), on(dev, cand),
+                    torch.Generator(device=dev).manual_seed(0))
+        _, _, idx = selection.select_batch(got, *on(dev, (cand["tokens"],
+                                                           cand["targets"])),
+                                           4)
+        scores[dev] = (got.cpu(), idx.cpu())
+    err = float((scores["cuda"][0] - scores["cpu"][0]).abs().max())
+    top = torch.sort(scores["cpu"][0], descending=True)[0]
+    same = torch.equal(scores["cuda"][1], scores["cpu"][1])
+    print(f"  (c) score step (T = 4) + select_batch: scores card vs CPU "
+          f"max_abs_err {err:.3e}; picked {scores['cuda'][1].tolist()} "
+          f"card, {scores['cpu'][1].tolist()} CPU; gap between the 4th "
+          f"and 5th score {float(top[3] - top[4]):.3e}")
+    if not (err <= 1e-5 and same):
+        raise AssertionError(f"score step card vs CPU: {err}, {same}")
+    out["score"] = {"scores_err": err, "picked": scores["cuda"][1].tolist()}
+    return out
+
+
+def acquisition_candidates(torch, cfg):
+    """Phase 25 (d)'s candidates: ``ACQUIRE["candidates"]`` sequences of
+    ``ACQUIRE["seq"]`` tokens from ``SyntheticLMStream`` at seed 7, on the
+    card."""
+    from repro_torch.data.lm import SyntheticLMStream
+    toks, tgts = SyntheticLMStream(vocab=cfg.vocab_size, seed=7).sample(
+        ACQUIRE["candidates"], ACQUIRE["seq"], seed=7)
+    return {"tokens": torch.from_numpy(toks).cuda(),
+            "targets": torch.from_numpy(tgts).cuda()}
+
+
+def run_acquisition_step(torch, reset, read, params):
+    """Phase 25 (d): the acquisition step at gemma2-2b's published widths
+    on the params phase 25 (a) trained: ``make_score_step(mc_samples=4)``
+    scores ``ACQUIRE["candidates"]`` sequences from ``SyntheticLMStream``
+    (K1 exactly once a score step, on ``[4, 1024, 256000]``; two calls,
+    the first warms up), ``select_batch`` keeps 4, one adamw train step
+    runs on them.  Returns the summary and the launches of the three
+    calls."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core import selection
+    from repro_torch.launch import steps as S
+    from repro_torch.models.api import build_model
+    from repro_torch.optim import adamw
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    cand = acquisition_candidates(torch, cfg)
+    score = S.make_score_step(model, mc_samples=ACQUIRE["mc_samples"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, all_launches = [], []
+    for _ in range(2):                       # the first call warms up
+        reset()
+        t0 = time.perf_counter()
+        scores = score(params, cand, torch.Generator(device="cuda")
+                       .manual_seed(0))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        all_launches.append(read())
+    tok, tgt, idx = selection.select_batch(scores, cand["tokens"],
+                                           cand["targets"],
+                                           ACQUIRE["keep"])
+    score_peak = torch.cuda.max_memory_allocated() / 2**30
+    opt = adamw(3e-4)
+    reset()
+    t0 = time.perf_counter()
+    _, _, m = S.make_train_step(model, opt)(params, opt.init(params),
+                                            {"tokens": tok, "targets": tgt},
+                                            0)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    all_launches.append(read())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k1 = [run["acquisition_scores"] for run in all_launches[:2]]
+    print(f"  (d) score step ({ACQUIRE['candidates']} x {ACQUIRE['seq']} "
+          f"tokens, T = {ACQUIRE['mc_samples']}, vocab {cfg.vocab_size}): "
+          f"{walls[0]:.4f} s cold, {walls[1]:.4f} s warm; K1 launches a "
+          f"step {k1}; scores {[round(float(x), 5) for x in scores]}; "
+          f"picked {idx.tolist()}; peak {score_peak:.2f} GiB; train step on "
+          f"the 4 kept: loss {loss:.5f}, {step_s:.3f} s, peak {peak:.2f} "
+          f"GiB; launches {all_launches}")
+    if k1 != [1, 1] or any(run["acquisition_scores"]
+                           for run in all_launches[2:]):
+        raise AssertionError(f"score step K1 launches {all_launches}")
+    if not (bool(torch.isfinite(scores).all()) and math.isfinite(loss)
+            and len(set(idx.tolist())) == ACQUIRE["keep"]):
+        raise AssertionError(f"acquisition step: scores {scores}, picked "
+                             f"{idx}, loss {loss}")
+    return ({"score_s": walls, "scores": scores.tolist(),
+             "picked": idx.tolist(), "score_peak_gib": score_peak,
+             "train_step_s": step_s, "loss": loss, "peak_gib": peak,
+             "launches": all_launches}, all_launches)
+
+
+def gemma_train_paths(torch):
+    """Phase 11's traced train path: two steps of ``launch.train.train``
+    (gemma2-2b at full depth, ``TRAIN``'s batch; the stream and the
+    optimiser's set-up included) from weights at seed 0, which ``train``
+    would draw itself, passed through ``init_params=`` so that the trace
+    holds no weight init; and phase 25 (d)'s score step on those
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_score_step
+    from repro_torch.launch.train import train
+    from repro_torch.models.api import build_model
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    cand = acquisition_candidates(torch, cfg)
+    score = make_score_step(model, mc_samples=ACQUIRE["mc_samples"])
+    kw = dict(TRAIN, steps=2)
+    return (lambda: train("gemma2-2b", full_config=True, device="cuda",
+                          init_params=[params], **kw),
+            lambda: score(params, cand, torch.Generator(device="cuda")
+                          .manual_seed(0)))
 
 
 def check_small_round_against_cpu(torch, fed, interop, lenet):
@@ -3349,6 +3702,16 @@ def main() -> int:
     whisper_path, whisper_launches = run_serve_path(torch, reset, read,
                                                     "whisper-small")
     torch.cuda.empty_cache()
+    phase("phase 25: the training half: gemma2-2b trained at full depth, "
+          "whisper-small's federated schedule, the steps card vs CPU, and "
+          "the acquisition step at vocab 256,000")
+    train_path, gemma_trained, train_launches = run_train_path(torch, reset,
+                                                               read)
+    train_vs_cpu = check_train_against_cpu(torch)
+    acquire, acquire_launches = run_acquisition_step(torch, reset, read,
+                                                     gemma_trained)
+    del gemma_trained
+    torch.cuda.empty_cache()
     phase("phase 20: the sharded fleet: one-rank NCCL meshes (massive, fog, "
           "async, stream), then massive split over two processes on gloo")
     sharded = run_sharded_paths(torch, fed, reset, read, first)
@@ -3414,6 +3777,26 @@ def main() -> int:
               f"trace read in {read_s:.3f} s; peak device memory "
               f"{peak:.2f} GiB")
         torch.cuda.empty_cache()
+    train_two, score_one = gemma_train_paths(torch)
+    score_one()                              # warm, as phase 25 (d)
+    for name, fn in (
+            (f"train (launch.train, gemma2-2b at full depth, 2 steps of "
+             f"{TRAIN['batch']} x {TRAIN['seq']} tokens, host data and "
+             f"set-up included)", train_two),
+            ("score step (gemma2-2b, T = 4 over 8 x 128 tokens)",
+             score_one)):
+        torch.cuda.reset_peak_memory_stats()
+        wall, busy, _, top, read_s = trace_path(torch, fn)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        path_profiles[name.split(" (")[0]] = {
+            "wall_s": wall, "busy_s": busy, "trace_read_s": read_s,
+            "peak_gib": peak}
+        print(f"  {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
+              f"(idle share {1.0 - busy / wall:.3f}); top kernels {top}; "
+              f"trace read in {read_s:.3f} s; peak device memory "
+              f"{peak:.2f} GiB")
+    del train_two, score_one
+    torch.cuda.empty_cache()
     int8 = comms.CommsConfig(compression="int8")
     codec_profiles = {}
     for name, fn in (
@@ -3441,7 +3824,8 @@ def main() -> int:
                     *(v[1] for v in codecs.values()), b_int8[1],
                     hetero[1], churn[1], async_path[1], stream_path[1],
                     *(v[1] for v in zoo_fleets.values()), *serve_launches,
-                    *whisper_launches,
+                    *whisper_launches, *train_launches,
+                    *acquire_launches,
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -3475,6 +3859,8 @@ def main() -> int:
                       "sharded": sharded, "zoo": zoo,
                       "zoo_decode": zoo_decode, "serve": serve_path,
                       "whisper_serve": whisper_path,
+                      "train": train_path, "train_vs_cpu": train_vs_cpu,
+                      "acquire": acquire,
                       "zoo_fleets": {k: {"wall_s": w, "launches": n}
                                      for k, (w, n) in zoo_fleets.items()},
                       "k2_lm_trees": k2_lm,

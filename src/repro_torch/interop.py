@@ -7,7 +7,9 @@ takes the JAX side's tree with every leaf turned into a numpy array
 (``jax.tree_util.tree_map(np.asarray, tree)`` on that side) and returns
 torch tensors on ``device``; ``params_to_jax`` returns numpy leaves that
 the JAX side wraps with ``jnp.asarray``.  Single and stacked ``[D, ...]``
-params and the Adam state ``{"m": tree, "v": tree}`` are nested dicts,
+params and the optimiser states (adamw's ``{"m": tree, "v": tree}``,
+adafactor's ``{"v": tree}`` whose leaves are ``{"vr", "vc"}`` or
+``{"v"}`` dicts, all float32) are nested dicts,
 lists and tuples (the decoder's ``head_layers`` / ``units`` /
 ``tail_layers`` are lists; the SSM adapter's ``recurrent/state`` is a leaf
 like any other); ``VPool`` is a named tuple on both sides and converts
@@ -39,8 +41,8 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, device) -> dict:
-    """Tree of numpy leaves (params, stacked params, Adam state) → the same
-    tree of torch tensors on ``device``."""
+    """Tree of numpy leaves (params, stacked params, an optimiser state)
+    → the same tree of torch tensors on ``device``."""
     return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
 

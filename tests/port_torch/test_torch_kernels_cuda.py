@@ -81,6 +81,25 @@ def test_acquisition_kernel_matches_plain_at_lm_widths(cuda, shape, dtype):
         torch.testing.assert_close(g, w, atol=tol, rtol=0)
 
 
+# the acquisition step's scoring call at gemma2-2b's vocabulary (the
+# score step's [T, B·S, V] block, 64 of its 1,024 rows)
+K1_VOCAB_256K = (4, 64, 256000)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_acquisition_kernel_at_the_256k_vocabulary(cuda, dtype):
+    """K1 at 256,000 classes against plain (atol 1e-4, as from C = 32768
+    on), one launch, and two calls bit-equal."""
+    lp = _k1_input(K1_VOCAB_256K, dtype, cuda)
+    before = k1.launches
+    one = k1.acquisition_scores(lp)
+    assert k1.launches == before + 1
+    two = k1.acquisition_scores(lp)
+    for a, b, w in zip(one, two, k1.acquisition_scores_plain(lp)):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, atol=1e-4, rtol=0)
+
+
 # one shape for each number of class slices the plan picks
 K1_SLICE_SHAPES = {1: (4, 600, 2048), 2: (8, 4, 32, 32768),
                    4: (4, 100, 50288), 8: (4, 32, 50288)}
