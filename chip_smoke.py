@@ -232,6 +232,24 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     rank's wall, launches and global-shape draw bytes (a refusal of gloo
     to take CUDA tensors is reported on its own line); every group is
     destroyed after;
+26. the model-parallel launch tools (``launch.mesh``, ``launch.sharding``,
+    ``nn.shard_hints``, ``launch.op_analysis``, ``launch.dryrun``): (a)
+    ``python -m repro_torch.launch.dryrun --arch gemma2-2b`` in a child
+    process on a fake 16 × 16 group over meta tensors, all four shapes,
+    host only (the card hidden from it; started right after phase 2 and
+    read here): per device GB, FLOPs, traffic, collective bytes and
+    counts, the three roofline terms (H100 constants) and the trace
+    seconds, no shape recording an error; (b) gemma2-2b at full depth in
+    bfloat16 on a one-rank NCCL ``make_debug_mesh(1)``, params placed by
+    the rule tables: one ``"pallas"`` prefill of ``[4, 4128]`` under
+    ``op_analysis.analyze`` on the card, its FLOPs equal to the same step
+    traced on meta tensors, no collective, K3 launched 26 times, and the
+    measured prefill seconds beside the roofline's compute and memory
+    seconds for that count; (c) ``serve``'s greedy loop of the same
+    model driven through ``make_prefill_step`` and ``make_decode_step``
+    with ``shard_hints=True`` under that mesh, a prefill and 4 decode
+    steps on ``"pallas"``: the logits and tokens bit-equal to ``serve``
+    without a mesh and hints;
 11. run last: the host time of each path's data generation, then the
     five paths of phases 8-10, phases 15-17, 19 and 21, phases 23
     (b) and 24 (b), two train steps of phase 25 (a) (``launch.train.
@@ -242,7 +260,7 @@ CUDA PyTorch.  Phases, each of which stops the run on failure:
     activity too, for the device time of the codec (the kernels
     launched inside the engine's ``comms_codec`` spans);
 18. a ``{"kernels": [...]}`` line (launches in phases 8-10, 12-17, 19,
-    21, 22 (the fleets), 23, 24, 25 and 20 (a), K2's segment-form
+    21, 22 (the fleets), 23, 24, 25, 20 (a) and 26, K2's segment-form
     launches of phase 19
     apart, error, times, bound), and last the ``{"ok": true, "device":
     ...}`` line.
@@ -3506,6 +3524,236 @@ def run_gloo_split(torch, massive):
             "drawn_bytes": [g["drawn_bytes"] for g in got]}
 
 
+# phase 26: the model-parallel launch tools
+DRYRUN_TIMEOUT_S = 900          # the dry run's child, from its start
+MESH_SERVE = dict(batch=4, prompt_len=4128, max_new_tokens=5)
+
+
+def start_dry_run(src: Path):
+    """Phase 26 (a), started right after the build: the port's dry run of
+    gemma2-2b (``python -m repro_torch.launch.dryrun``) in a child process
+    on a fake 16 × 16 group over meta tensors, all four shapes, the card
+    hidden from it, one host thread.  Its records and log go to
+    ``build/dryrun/``.  Returns ``(process, out dir, log, start time)``;
+    an exit of this script kills the child if it still runs."""
+    import atexit
+    import shutil
+    out = src.parent / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    log = out / "log.txt"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "gemma2-2b", "--out-dir", str(out)], stdout=f,
+            stderr=subprocess.STDOUT, env=env, cwd=str(src.parent))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, out, log, time.perf_counter()
+
+
+def finish_dry_run(handle):
+    """Phase 26 (a): wait for the dry run's child, then print each shape's
+    record; a shape that recorded an error, or a child that failed or ran
+    past ``DRYRUN_TIMEOUT_S``, fails the run."""
+    proc, out, log, t0 = handle
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 26 (a): the dry run ran past "
+                             f"{DRYRUN_TIMEOUT_S} s:\n{log.read_text()[-3000:]}")
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 26 (a): the dry run exited {rc}:\n"
+                             f"{log.read_text()[-3000:]}")
+    records = {}
+    for path in sorted(out.glob("gemma2-2b__*.json")):
+        rec = json.loads(path.read_text())
+        records[rec["shape"]] = rec
+    print(f"  (a) host only (fake 16 x 16 group, meta tensors, the card "
+          f"hidden): the child's wall {wall:.1f} s from its start after "
+          f"phase 2")
+    want = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    for shape in want:
+        rec = records.get(shape)
+        if rec is None or "error" in rec:
+            raise AssertionError(f"phase 26 (a): gemma2-2b {shape}: "
+                                 f"{rec and rec.get('error')}")
+        m, r = rec["per_device_bytes"], rec["roofline"]
+        print(f"  (a) {shape}: per device argument {m['argument_gb']:.3f} "
+              f"GB, output {m['output_gb']:.3f}, alias {m['alias_gb']:.3f}, "
+              f"temp {m['temp_gb']:.3f}; FLOPs {rec['hlo_flops']:.6g}, "
+              f"traffic {rec['hlo_traffic']:.6g} B, collectives "
+              f"{rec['collective_bytes']:.6g} B {rec['collective_counts']}; "
+              f"roofline compute {r['compute_s']:.6g} s, memory "
+              f"{r['memory_s']:.6g} s, collective {r['collective_s']:.6g} s "
+              f"({r['bottleneck']}); trace {rec['lower_s']} + "
+              f"{rec['compile_s']} s")
+    return {"wall_s": wall, "records": {k: records[k] for k in want}}
+
+
+def run_mesh_analysis(torch, reset, read):
+    """Phase 26 (b): gemma2-2b at full depth in bfloat16 on a one-rank
+    NCCL ``make_debug_mesh(1)``, params placed by the rule tables; one
+    ``"pallas"`` prefill of ``[4, 4128]`` (caches of 4,161 slots, phase
+    23's) timed warm, then again under ``op_analysis.analyze``: FLOPs
+    equal to the same step traced on meta tensors over the same mesh, no
+    collective on either, K3 launched 26 times; the measured seconds
+    beside ``roofline_terms``' compute and memory seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.dryrun import on_meta, roofline_terms
+    from repro_torch.launch.mesh import make_debug_mesh, use_mesh
+    from repro_torch.launch.sharding import (batch_spec, distribute,
+                                             distribute_params)
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.api import build_model
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_debug_mesh(1)
+    group = mesh.get_group("model")
+    print(f"  (b) mesh {mesh}, backend "
+          f"{torch.distributed.get_backend(group)}")
+    cfg = get_config("gemma2-2b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    if n_params != SERVE_PARAMS:
+        raise AssertionError(f"gemma2-2b has {n_params} parameters")
+    B, S = MESH_SERVE["batch"], MESH_SERVE["prompt_len"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(1))
+    prefill = make_prefill_step(model, max_cache_len=S + 32 + 1,
+                                impl="pallas")
+    dparams = distribute_params(mesh, params)
+    batch = {"tokens": distribute(mesh, prompts, batch_spec(mesh, 2))}
+    with use_mesh(mesh):
+        prefill(dparams, batch)                       # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(dparams, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        reset()
+        (logits, _), card, traced_s = op_analysis.analyze(prefill, dparams,
+                                                          batch)
+        torch.cuda.synchronize()
+        launches = read()
+    finite = bool(torch.isfinite(logits.full_tensor()).all())
+    del dparams, params, logits
+    torch.cuda.empty_cache()
+    mparams = distribute_params(mesh, on_meta(model.init, torch.Generator()))
+    mbatch = {"tokens": distribute(mesh, torch.zeros(
+        (B, S), dtype=prompts.dtype, device="meta"), batch_spec(mesh, 2))}
+    with use_mesh(mesh):
+        _, meta, meta_s = op_analysis.analyze(prefill, mparams, mbatch)
+    roof = roofline_terms(1, card.flops, card.traffic, card.collective_bytes)
+    share = max(roof["compute_s"], roof["memory_s"]) / secs
+    print(f"  (b) pallas prefill [{B}, {S}]: card FLOPs {card.flops:.6g}, "
+          f"meta {meta.flops:.6g} (equal: {card.flops == meta.flops}); "
+          f"traffic card {card.traffic:.6g} B, meta {meta.traffic:.6g} B; "
+          f"collectives card {card.collective_counts}, meta "
+          f"{meta.collective_counts}; K3 {launches['flash_attention']} "
+          f"launches; traced in {traced_s:.3f} s on the card, "
+          f"{meta_s:.3f} s on meta")
+    print(f"  (b) measured prefill {secs:.4f} s; roofline compute "
+          f"{roof['compute_s']:.6g} s, memory {roof['memory_s']:.6g} s "
+          f"(traffic proxy: operand + result bytes of every op); the larger "
+          f"is {share:.4f} of the measured")
+    if card.flops != meta.flops or card.flops <= 0:
+        raise AssertionError(f"phase 26 (b): card FLOPs {card.flops} vs "
+                             f"meta {meta.flops}")
+    if card.collective_counts or meta.collective_counts:
+        raise AssertionError("phase 26 (b): collectives on a one-rank mesh: "
+                             f"{card.collective_counts}, "
+                             f"{meta.collective_counts}")
+    if launches["flash_attention"] != cfg.n_layers or not finite:
+        raise AssertionError(f"phase 26 (b): K3 {launches}, finite {finite}")
+    return ({"prefill_s": secs, "flops": card.flops, "traffic": card.traffic,
+             "meta_flops": meta.flops, "meta_traffic": meta.traffic,
+             "roofline": roof, "share": share, "traced_s": traced_s,
+             "meta_traced_s": meta_s, "launches": launches}, launches, mesh)
+
+
+def run_mesh_hints(torch, reset, read, mesh):
+    """Phase 26 (c): ``serve("gemma2-2b", full_config=True, impl="pallas")``,
+    a prefill of ``[4, 4128]`` and 4 decode steps in bfloat16, against
+    its greedy loop driven through ``make_prefill_step`` and
+    ``make_decode_step`` with ``shard_hints=True`` under ``use_mesh``,
+    the same seed's params placed by the rule tables: logits and tokens
+    bit-equal, K3 26 launches a step in both.  The group is destroyed
+    after."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import use_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.sharding import (batch_spec, distribute,
+                                             distribute_params)
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.api import build_model
+
+    B, P = MESH_SERVE["batch"], MESH_SERVE["prompt_len"]
+    new = MESH_SERVE["max_new_tokens"]
+    launches = []
+    torch.cuda.empty_cache()
+    reset()
+    a = serve("gemma2-2b", full_config=True, device="cuda", impl="pallas",
+              keep_logits=True, **MESH_SERVE)
+    launches.append(read())
+    print(f"  (c) plain serve: prefill {a.prefill_s:.3f} s, decode "
+          f"{a.decode_s:.3f} s for {new - 1} steps; launches {launches[-1]}")
+
+    torch.cuda.empty_cache()
+    model = build_model(replace(get_config("gemma2-2b"), shard_hints=True))
+    params = distribute_params(mesh, model.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    prefill = make_prefill_step(model, max_cache_len=P + new + 1,
+                                impl="pallas")
+    decode = make_decode_step(model, impl="pallas")
+    place = lambda t: distribute(mesh, t, batch_spec(mesh, 2))
+    kept, toks = [], []
+    reset()
+    with use_mesh(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, {"tokens": place(a.prompts)})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i in range(new):
+            kept.append(logits[:, -1].full_tensor())
+            toks.append(kept[-1].float().argmax(dim=-1, keepdim=True))
+            if i < new - 1:
+                logits, caches = decode(params, place(toks[-1]), caches,
+                                        P + i)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    launches.append(read())
+    print(f"  (c) steps over the mesh with hints: prefill {prefill_s:.3f} s, "
+          f"decode {decode_s:.3f} s for {new - 1} steps; launches "
+          f"{launches[-1]}")
+    logits_b, tokens_b = torch.stack(kept, dim=1), torch.cat(toks, dim=1)
+    same = bool(torch.equal(a.logits, logits_b)
+                and torch.equal(a.tokens, tokens_b))
+    gap = float((a.logits.float() - logits_b.float()).abs().max())
+    print(f"  (c) logits bit-equal: {same} (largest gap {gap:.3e}); tokens "
+          f"{tokens_b[0].tolist()}")
+    del params, caches, logits, kept
+    torch.distributed.destroy_process_group()
+    want = 26 * new
+    if not same or any(n["flash_attention"] != want for n in launches):
+        raise AssertionError(f"phase 26 (c): bit-equal {same}, launches "
+                             f"{launches}")
+    return {"bit_equal": same, "prefill_s": [a.prefill_s, prefill_s],
+            "decode_s": [a.decode_s, decode_s]}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3548,6 +3796,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(f"  built {secs} in {time.perf_counter() - t0:.1f} s")
+    dry_run = start_dry_run(src)
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if ("entry function" in line or "registers" in line
@@ -3719,6 +3968,15 @@ def main() -> int:
     sharded["gloo split"] = run_gloo_split(torch, first["massive"])
     del first
     torch.cuda.empty_cache()
+    phase("phase 26: the model-parallel launch tools: the dry run (host "
+          "only), the analysis held against the card, the hints on the card")
+    launch_tools = {"dry_run": finish_dry_run(dry_run)}
+    launch_tools["analysis"], mesh_launches, mp_mesh = run_mesh_analysis(
+        torch, reset, read)
+    launch_tools["hints"], hint_launches = run_mesh_hints(torch, reset, read,
+                                                          mp_mesh)
+    del mp_mesh
+    torch.cuda.empty_cache()
 
     phase("phase 11: where the time goes (all paths again, profiled)")
     from repro_torch.data.digits import make_digit_dataset
@@ -3825,7 +4083,7 @@ def main() -> int:
                     hetero[1], churn[1], async_path[1], stream_path[1],
                     *(v[1] for v in zoo_fleets.values()), *serve_launches,
                     *whisper_launches, *train_launches,
-                    *acquire_launches,
+                    *acquire_launches, mesh_launches, *hint_launches,
                     *(v["launches"] for v in fog_path.values()),
                     *(run for v in sharded.values()
                       for run in v.get("launches", {}).values())]
@@ -3860,7 +4118,7 @@ def main() -> int:
                       "zoo_decode": zoo_decode, "serve": serve_path,
                       "whisper_serve": whisper_path,
                       "train": train_path, "train_vs_cpu": train_vs_cpu,
-                      "acquire": acquire,
+                      "acquire": acquire, "launch_tools": launch_tools,
                       "zoo_fleets": {k: {"wall_s": w, "launches": n}
                                      for k, (w, n) in zoo_fleets.items()},
                       "k2_lm_trees": k2_lm,

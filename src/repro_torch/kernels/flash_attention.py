@@ -28,6 +28,14 @@ on its ``"pallas"`` route.  For tensors on the CPU it runs
 for tensors on the card it launches the kernel, or raises on what the
 kernel does not take.  There is no fallback from one to the other.
 ``launches`` counts kernel launches.
+
+``flash_attention_op`` is the same wrapper registered as the torch op
+``repro_torch::flash_attention``, so that dispatch modes see it: its
+meta kernel gives the output's shape (a trace on meta tensors runs
+nothing), and its FLOP formula (``launch.op_analysis``) is the dense
+``4·B·H·Sq·Skv·d`` of the two products, masked keys included.  The
+attention core calls it on its ``"pallas"`` route under a mesh, on each
+rank's local heads.
 """
 from __future__ import annotations
 
@@ -210,3 +218,38 @@ def flash_attention(q, k, v, *, causal: bool = True,
     global launches
     launches += 1
     return out
+
+
+# ------------------------------------------------------ the registered op
+def _flash_attention_op(q, k, v, causal, window, softcap, scale, q_offset):
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale, q_offset=q_offset)
+
+
+flash_attention_op = torch.library.custom_op(
+    "repro_torch::flash_attention", _flash_attention_op, mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, SymInt? window, "
+           "float? softcap, float? scale, SymInt q_offset) -> Tensor")
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, softcap, scale, q_offset):
+    return torch.empty_like(q)
+
+
+def attention_flops(q_shape, k_shape) -> int:
+    """FLOPs of the kernel's two products on q ``[B, Sq, H, d]``, k ``[B,
+    Skv, Hkv, d]``: ``2·B·H·Sq·Skv·d`` each, every key counted."""
+    B, Sq, H, d = q_shape
+    return 4 * B * H * Sq * k_shape[1] * d
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _(q_shape, k_shape, *args, out_shape=None, **kwargs):
+        return attention_flops(q_shape, k_shape)
+
+
+_register_flops()

@@ -18,13 +18,24 @@ starts one from torchrun's environment (``RANK``, ``WORLD_SIZE``,
 ``FileStore`` in a temporary directory (no network).  Without a card and
 without ``device="cpu"`` the mesh raises, as ``resolve_device`` does.
 
-The reference's ``make_auto_mesh``, ``use_mesh``, ``make_production_mesh``,
-``make_debug_mesh``, ``batch_axes`` and its hardware constants serve the
-model-parallel launch tools (ROADMAP item 17) and are not here.
+Model-parallel meshes (the rest of ``repro.launch.mesh``) are
+``torch.distributed.DeviceMesh``-es over the default group, with the
+reference's axis names: ``make_production_mesh`` (16 × 16 ``("data",
+"model")``, or 2 × 16 × 16 with a leading ``"pod"``),
+``make_debug_mesh`` and ``make_auto_mesh``.  ``backend="fake"`` starts
+the group as torch's fake backend (collectives are no-ops, ranks need
+not exist): the tools that trace on meta tensors (``launch.dryrun``)
+take it, in a process of their own, since it becomes the default group.
+Otherwise the group is NCCL on the card and gloo with ``device="cpu"``,
+as for a fleet mesh.  ``use_mesh`` (from ``nn.shard_hints``, where the
+layers read it) activates a mesh for the shard hints for the length of
+a ``with`` block; nested blocks restore the outer mesh.  The hardware
+constants are the H100's (``roofline_terms`` in ``launch.dryrun``).
 """
 from __future__ import annotations
 
 import atexit
+import math
 import os
 import shutil
 import tempfile
@@ -36,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.nn.shard_hints import active_mesh, use_mesh  # noqa: F401
 
 # Mesh axis name the edge engine shards its fleet over.
 DEVICE_AXIS = "device"
@@ -147,3 +159,73 @@ def make_fog_mesh(fog_shards: Optional[int] = None,
                          f"must be positive")
     _start_group(dev)
     return _mesh((FOG_AXIS, DEVICE_AXIS), (fog_shards, device_shards), dev)
+
+
+# ============================================================ model parallel
+# NVIDIA H100 SXM5 80GB (the roofline of ``launch.dryrun``), per GPU:
+PEAK_FLOPS_BF16 = 989e12   # dense bf16 tensor-core FLOP/s (H100 datasheet)
+HBM_BW = 3.35e12           # HBM3 bytes/s (H100 SXM5 datasheet)
+NVLINK_BW = 450e9          # NVLink 4 bytes/s each way (900 GB/s total)
+
+
+def _start_fake_group(world: int) -> None:
+    """The default group as torch's fake backend: ``world`` ranks of
+    which this process is rank 0, every collective a no-op."""
+    if dist.is_initialized():
+        if dist.get_world_size() != world:
+            raise ValueError(f"a mesh of {world} ranks over a started group "
+                             f"of {dist.get_world_size()}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def make_auto_mesh(shape, axis_names, *, device=None,
+                   backend: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the default
+    group, started here when none is: ``backend="fake"`` a fake group of
+    ``prod(shape)`` ranks for tracing on meta tensors, else as ``make_device_mesh`` starts one (NCCL on the card,
+    gloo with ``device="cpu"``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axes {axis_names}")
+    if backend == "fake":
+        # typed "cuda" so DTensor plans the card's collectives (its "cpu"
+        # meshes turn an all-to-all into an all-gather, for gloo); the
+        # tensors stay on meta and nothing touches a card
+        from torch.distributed.device_mesh import DeviceMesh
+        _start_fake_group(math.prod(shape))
+        return DeviceMesh("cuda", torch.arange(math.prod(shape)).reshape(
+            shape), mesh_dim_names=axis_names)
+    if backend is not None:
+        raise ValueError(f"unknown mesh backend {backend!r}: use 'fake' or "
+                         "None")
+    dev = _bind(device)
+    _start_group(dev)
+    _mesh(axis_names, shape, dev)       # the group's size must match
+    return init_device_mesh(dev.type, shape, mesh_dim_names=axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None,
+                         backend: Optional[str] = None):
+    """16 × 16 = 256 GPUs a pod; ``multi_pod`` stacks a leading ``pod``
+    axis (512)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_auto_mesh(shape, axes, device=device, backend=backend)
+
+
+def make_debug_mesh(devices: Optional[int] = None, *, device=None,
+                    backend: Optional[str] = None):
+    """A ``(1, n)`` ``("data", "model")`` mesh over ``n`` ranks (default:
+    the started group's, else one)."""
+    n = devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    return make_auto_mesh((1, n), ("data", "model"), device=device,
+                          backend=backend)
+
+
+def batch_axes(mesh) -> tuple:
+    """Mesh axes a batch dimension shards over."""
+    return tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)

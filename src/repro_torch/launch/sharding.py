@@ -29,21 +29,31 @@ sharded run then draws exactly what the unsharded one does, at the cost
 of each rank drawing the whole fleet's uniforms (``drawn_bytes`` counts
 them).
 
-The reference's parameter and cache rules (``spec_for_path``,
-``param_pspecs``, ``param_shardings``, ``batch_spec``, ``cache_pspec(s)``)
-serve the model-parallel launch tools (ROADMAP item 17) and are not
-here.
+Model parallelism (the rest of ``repro.launch.sharding``).  The
+reference's rule table maps a parameter's ``/``-joined tree path to a
+PartitionSpec by substring, first match wins; here ``_RULES`` is the same
+table as data, a spec being a tuple with one entry a tensor dim: ``None``
+(replicated), a mesh axis name, or a tuple of names.  Specs are
+right-aligned to the leaf's rank, so a stacked leaf's leading axes
+replicate: the decoder's ``[U, ...]`` units, as in the reference, and
+the port's leading fleet axis ``[D, ...]`` (``nn.layers``), which the
+reference does not have, both take ``None``.  ``param_shardings`` turns
+specs into DTensor placements over a ``DeviceMesh``
+(``launch.mesh.make_production_mesh``): ``Shard(dim)`` on each mesh dim
+a tensor dim names, ``Replicate()`` on the others; ``distribute_params``
+applies them.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import DEVICE_AXIS, FOG_AXIS
-from repro_torch.tree import tree_map
+from repro_torch.nn.shard_hints import placements_for
+from repro_torch.tree import tree_map, tree_map_with_path
 
 # bytes of uniforms drawn at the global shape under a sharded
 # ``fleet_draws``, and the share of them this rank keeps
@@ -223,3 +233,163 @@ def rand_rows(shape, *, generator: Optional[torch.Generator],
     drawn_bytes["kept"] += u.numel() * u.element_size() // shard.num_devices \
         * shard.local_rows
     return u[shard.start:shard.stop]
+
+
+# ============================================================ model parallel
+Entry = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Entry, ...]
+
+# (substring, spec of the trailing dims): first match wins, in the
+# reference's order; a 2-dim spec on a 3-dim stacked leaf leaves dim 0
+# replicated.
+_RULES: Tuple[Tuple[str, Spec], ...] = (
+    # MoE experts [E, D, F] / [E, F, D]: expert-parallel + FSDP
+    ("experts/wi_gate", ("model", None, "data")),
+    ("experts/wi_up", ("model", None, "data")),
+    ("experts/wo", ("model", "data", None)),
+    ("router/kernel", (None, None)),
+    # embeddings
+    ("embed/embedding", ("model", None)),          # vocab -> model
+    ("dec_pos/embedding", (None, None)),
+    ("unembed/kernel", (None, "model")),
+    # attention (merged head dim columns)
+    ("wq/kernel", (None, "model")),
+    ("wk/kernel", (None, "model")),
+    ("wv/kernel", (None, "model")),
+    ("wo/kernel", ("model", None)),
+    ("wq/bias", ("model",)),
+    ("wv/bias", ("model",)),
+    ("wo/bias", (None,)),
+    # MLA
+    ("wdq/kernel", (None, "model")),
+    ("wuq/kernel", (None, "model")),
+    ("wdkv/kernel", (None, None)),
+    ("wkr/kernel", (None, None)),
+    ("wuk/kernel", (None, "model")),
+    ("wuv/kernel", (None, "model")),
+    # MLPs
+    ("wi_gate/kernel", (None, "model")),
+    ("wi_up/kernel", (None, "model")),
+    ("wi/kernel", (None, "model")),
+    ("wi/bias", ("model",)),
+    # mamba2
+    ("in_proj/kernel", (None, "model")),
+    ("out_proj/kernel", ("model", None)),
+    ("conv/kernel", (None, "model")),
+    ("conv/bias", ("model",)),
+    # rg-lru
+    ("gate_proj/kernel", (None, "model")),
+    ("rnn_proj/kernel", (None, "model")),
+    ("wa/kernel", (None, "model")),
+    ("wx/kernel", (None, "model")),
+    ("wa/bias", ("model",)),
+    ("wx/bias", ("model",)),
+    ("lambda", ("model",)),
+)
+
+
+def _aligned(entries, ndim: int) -> Spec:
+    """``entries`` right-aligned to ``ndim`` dims (leading dims None)."""
+    entries = list(entries)
+    if len(entries) > ndim:             # e.g. a 2-dim rule on a 1-dim leaf
+        entries = entries[-ndim:]       # (ndim 0 keeps all, as the reference)
+    return tuple([None] * (ndim - len(entries)) + entries)
+
+
+def spec_for_path(path_str: str, ndim: int) -> Spec:
+    """The spec of the leaf at ``path_str`` with ``ndim`` dims.  An
+    adafactor factored moment (``.../vr``, ``.../vc``) takes its
+    param's rule less the dim it averages away: ``vr`` the last,
+    ``vc`` the second to last."""
+    suffix = None
+    if path_str.endswith("/vr") or path_str.endswith("/vc"):
+        suffix = path_str[-2:]
+        path_str = path_str[:-3]
+    for pat, spec in _RULES:
+        if pat in path_str:
+            entries = list(spec)
+            if suffix == "vr":
+                entries = entries[:-1]
+            elif suffix == "vc":
+                entries = entries[:-2] + entries[-1:]
+            return _aligned(entries, ndim)
+    return (None,) * ndim                      # replicate by default
+
+
+def param_pspecs(params):
+    """A spec tree mirroring ``params`` (any tree of tensors)."""
+    return tree_map_with_path(lambda path, leaf: spec_for_path(
+        path, leaf.dim()), params)
+
+
+def param_shardings(mesh, params):
+    """A placements tree mirroring ``params`` (``param_pspecs`` over
+    ``mesh``)."""
+    return tree_map_with_path(lambda path, leaf: placements_for(
+        mesh, spec_for_path(path, leaf.dim())), params)
+
+
+def distribute(mesh, x: torch.Tensor, spec: Spec):
+    """``x`` (the whole tensor, the same on every rank) as a DTensor of
+    ``spec`` over ``mesh``: each rank keeps its own chunk, nothing is
+    sent (meta tensors too)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, mesh, placements_for(mesh, spec),
+                             src_data_rank=None)
+
+
+def distribute_params(mesh, params):
+    """``params`` as DTensors placed by the rule tables."""
+    return tree_map_with_path(lambda path, leaf: distribute(
+        mesh, leaf, spec_for_path(path, leaf.dim())), params)
+
+
+# ---------------------------------------------------------------- activations
+def batch_spec(mesh, ndim: int, *, batch_dim: int = 0) -> Spec:
+    """Dim ``batch_dim`` over ``(pod, data)``, the others replicated."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    entries = [None] * ndim
+    entries[batch_dim] = axes if len(axes) > 1 else axes[0]
+    return tuple(entries)
+
+
+def cache_pspec(path_str: str, ndim: int, *, batch_sharded: bool,
+                batch_axes=("data",)) -> Spec:
+    """Decode-cache specs, right-aligned to the (unit- or layer-stacked)
+    leaf rank.
+
+    batch_sharded (decode_32k):    the batch dim over (pod, data);
+    sequence-sharded (long_500k, B = 1): the cache's sequence dim over
+    data.  The per-head or channel dim shards over model (head_dim,
+    latent rank, conv channels); head-count dims do not (gemma2 has 4 kv
+    heads, fewer than 16)."""
+    b_ax = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    leaf = path_str.rsplit("/", 1)[-1]
+    align = lambda trailing: _aligned(trailing, ndim)
+    if leaf == "pos":
+        return align([None])
+    if leaf in ("k", "v", "ck", "cv"):          # [B, S, Hkv, hd]
+        if batch_sharded:
+            return align([b_ax, None, None, "model"])
+        return align([None, b_ax, None, "model"])
+    if leaf == "ckv":                            # [B, S, kv_lora]
+        if batch_sharded:
+            return align([b_ax, None, "model"])
+        return align([None, b_ax, "model"])
+    if leaf == "krope":                          # [B, S, rope_dim]
+        if batch_sharded:
+            return align([b_ax, None, None])
+        return align([None, b_ax, None])
+    if leaf == "conv":                           # [B, W-1, channels]
+        return align([b_ax if batch_sharded else None, None, "model"])
+    if leaf == "state" and ndim >= 4:            # mamba [B, H, P, N]
+        return align([b_ax if batch_sharded else None, "model", None, None])
+    if leaf == "state":                          # rg-lru [B, width]
+        return align([b_ax if batch_sharded else None, "model"])
+    return (None,) * ndim
+
+
+def cache_pspecs(caches, *, batch_sharded: bool, batch_axes=("data",)):
+    return tree_map_with_path(lambda path, leaf: cache_pspec(
+        path, leaf.dim(), batch_sharded=batch_sharded,
+        batch_axes=batch_axes), caches)

@@ -42,6 +42,20 @@ def _extras(batch):
             if k not in ("tokens", "targets")} or None
 
 
+def _target_logit(logits, idx):
+    """``logits[..., idx]`` of each row, ``[...]``.  A DTensor (under a
+    mesh, the vocab sharded over ``model``) takes a masked sum, each rank
+    over its own vocab slice, then one small all-reduce: the vocabulary
+    parallel form, exact (one term is not zero).  DTensor's own gather
+    on a sharded dim does not run on these shapes."""
+    if hasattr(logits, "device_mesh"):
+        iota = torch.arange(logits.shape[-1], device=idx.device)
+        return torch.where(iota == idx, logits,
+                           torch.zeros((), dtype=logits.dtype,
+                                       device=idx.device)).sum(dim=-1)
+    return torch.gather(logits, -1, idx)[..., 0]
+
+
 def softmax_cross_entropy(logits, targets, *, z_loss: float = 1e-4,
                           lowp: bool = False):
     """Token-level cross entropy ``[...]`` plus ``z_loss · lse²``.
@@ -53,12 +67,12 @@ def softmax_cross_entropy(logits, targets, *, z_loss: float = 1e-4,
     if not lowp:
         logits = logits.float()
         lse = torch.logsumexp(logits, dim=-1)
-        ce = lse - torch.gather(logits, -1, idx)[..., 0]
+        ce = lse - _target_logit(logits, idx)
         return ce + z_loss * torch.square(lse)
     m = torch.amax(logits, dim=-1, keepdim=True)
     sumexp = torch.sum(torch.exp(logits - m), dim=-1, dtype=torch.float32)
     lse = torch.log(sumexp) + m[..., 0].float()
-    ce = lse - torch.gather(logits, -1, idx)[..., 0].float()
+    ce = lse - _target_logit(logits, idx).float()
     return ce + z_loss * torch.square(lse)
 
 
@@ -88,6 +102,20 @@ def _value_and_grad(loss_fn, params, batch, generator):
             tree_unflatten_like(params, list(grads)))
 
 
+def _microbatch(v, M: int, i: int):
+    """Slice ``i`` of ``M`` along the batch axis.  A DTensor batch (under
+    a mesh) is cut on each rank's local rows, so no row moves between
+    ranks: the slices then hold other rows than a whole-batch cut, and
+    the summed gradients are the same."""
+    if hasattr(v, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+        loc = v.to_local()
+        loc = loc.reshape((M, loc.shape[0] // M) + tuple(loc.shape[1:]))[i]
+        return DTensor.from_local(loc, v.device_mesh, v.placements,
+                                  run_check=False)
+    return v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
+
+
 def make_train_step(model: Model, optimizer: Optimizer, *,
                     clip_norm: float = 1.0, num_microbatches: int = 1,
                     batch_axes: tuple = (), lowp_ce: bool = False):
@@ -99,7 +127,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
     optimiser then receive) and their losses, each with its aux;
     ``metrics["ce"]`` is then the mean loss and ``aux`` a float32 zero.
     ``batch_axes`` is the reference's sharding constraint on the slices;
-    it changes no value, and the port takes it and ignores it."""
+    it changes no value, and the port takes it and ignores it: under a
+    mesh the slices are cut on each rank's rows (``_microbatch``)."""
     loss_fn = make_loss_fn(model, lowp_ce=lowp_ce)
     del batch_axes
 
@@ -109,13 +138,12 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
                                                    generator)
         else:
             M = num_microbatches
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             for i in range(M):
-                mb = {k: v.reshape((M, v.shape[0] // M) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, M, i) for k, v in batch.items()}
                 l_i, _, g_i = _value_and_grad(loss_fn, params, mb, generator)
                 tree_map(lambda a, g: a.add_(g.float()), grads, g_i)
                 loss = loss + l_i

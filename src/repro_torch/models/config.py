@@ -84,7 +84,8 @@ class ModelConfig:
     # --- training-time -------------------------------------------------------
     dropout_rate: float = 0.0                # >0 enables MC-dropout uncertainty
     remat: bool = True                       # XLA rematerialisation; unused here
-    shard_hints: bool = False                # XLA sharding hints; unused here
+    shard_hints: bool = False                # activation placement hints under
+                                             # a mesh (nn.shard_hints)
     param_dtype: torch.dtype = torch.float32
     dtype: torch.dtype = torch.float32       # activation dtype
 

@@ -56,6 +56,7 @@ from repro_torch.nn.mla import (mla_apply, mla_cache_from_prefill,
 from repro_torch.nn.moe import moe_apply, moe_init
 from repro_torch.nn.norms import (layernorm_apply, layernorm_init,
                                   rmsnorm_apply, rmsnorm_init)
+from repro_torch.nn.shard_hints import copy_into_stack, empty_stack
 from repro_torch.nn.rglru import (recurrent_block_apply,
                                   recurrent_block_init,
                                   recurrent_block_init_cache)
@@ -359,9 +360,10 @@ def decoder_forward(params, tokens: torch.Tensor, *, cfg: ModelConfig,
                        x, t, c)
             if c is not None:   # a prefill's cache, into its unit's slot
                 if stacks[p_idx] is None:
-                    stacks[p_idx] = tree_map(lambda a: a.new_empty(
-                        (a.shape[0], U) + tuple(a.shape[1:])), c)
-                tree_map(lambda st, a: st[:, u].copy_(a), stacks[p_idx], c)
+                    stacks[p_idx] = tree_map(lambda a: empty_stack(a, U),
+                                             c)
+                tree_map(lambda st, a: copy_into_stack(st, u, a),
+                         stacks[p_idx], c)
     collected["units"] = stacks
     for i, (p, t) in enumerate(zip(params["tail_layers"], tail_types)):
         x, c = run(p, x, t, caches["tail"][i] if decode else None)

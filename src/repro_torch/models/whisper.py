@@ -42,6 +42,7 @@ from repro_torch.nn.attention import (_proj, attention_core,
                                       cache_update_decode, gqa_init,
                                       init_cache)
 from repro_torch.nn.norms import layernorm_apply, layernorm_init
+from repro_torch.nn.shard_hints import merge_heads
 from repro_torch.tree import tree_map
 
 
@@ -69,7 +70,8 @@ def _attend(params, q, k, v, *, causal: bool, impl: str, q_pos=None,
     out = attention_core(fold(q), fold(k), fold(v), q_pos=q_pos,
                          kv_pos=kv_pos, causal=causal, impl=impl,
                          decode_position=decode_position)
-    return L.dense_apply(params["wo"], out.reshape(Dn, B, Sq, -1))
+    return L.dense_apply(params["wo"], merge_heads(out).reshape(Dn, B, Sq,
+                                                                -1))
 
 
 def _attn(params, x, kv, *, cfg: ModelConfig, causal: bool, impl: str):

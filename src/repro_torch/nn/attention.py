@@ -28,6 +28,12 @@ The core has the JAX package's routes, chosen by ``impl``:
   ``size`` positions).  Positions it cannot map raise ``ValueError``;
   nothing falls back to the plain version.
 
+Under a mesh (DTensor inputs) every route runs on each rank's local
+batch rows and heads (``_core_local``), through the registered kernel op
+on ``"pallas"`` (``kernels.flash_attention.flash_attention_op``, which
+dispatch modes see): attention is independent across rows and heads,
+and neither the kernel nor the core's reshapes receive a DTensor.
+
 Decode caches (``init_cache``, ``cache_update_decode``,
 ``cache_from_prefill``) are the reference's trees: ``{"k", "v": [B,
 size, Hkv, hd], "pos": [size]}`` for one model (``full``: ``size =
@@ -40,16 +46,21 @@ cache a step.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention import (NEG, flash_attention,
+                                                 flash_attention_op,
                                                  flash_attention_plain)
 from repro_torch.nn import init as initializers
 from repro_torch.nn.layers import dense_apply, per_device
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.shard_hints import (hint_heads, local_of,
+                                        local_placements, merge_heads,
+                                        placed, split_heads, write_slot)
 
 IMPLS = ("auto", "naive", "blockwise", "pallas")
 
@@ -61,13 +72,14 @@ def _mask_block(q_pos, kv_pos, *, causal: bool, window: Optional[int],
     ``[Skv]`` (the reference's)."""
     m = torch.ones((q_pos.shape[-1], kv_pos.shape[-1]), dtype=torch.bool,
                    device=q_pos.device)
+    # out of place: under a mesh the positions may be DTensors
     if causal:
-        m &= kv_pos[None, :] <= q_pos[:, None]
+        m = m & (kv_pos[None, :] <= q_pos[:, None])
     if window is not None:
-        m &= (q_pos[:, None] - kv_pos[None, :]) < window
-    m &= kv_pos[None, :] >= 0  # empty cache slots carry pos = -1
+        m = m & ((q_pos[:, None] - kv_pos[None, :]) < window)
+    m = m & (kv_pos[None, :] >= 0)  # empty cache slots carry pos = -1
     if kv_valid is not None:
-        m &= kv_valid[None, :]
+        m = m & kv_valid[None, :]
     return m
 
 
@@ -105,6 +117,62 @@ def _pallas_positions(Sq: int, Skv: int, *, causal: bool,
     return False, None, 0
 
 
+def _local_kv_heads(H: int, Hkv: int, m: int, r: int):
+    """The kv heads ``[lo, hi)`` that rank ``r``'s ``H / m`` query heads
+    read when kv stays whole on the ``m``-wide model axis, or None when
+    its query heads do not map onto whole kv groups."""
+    hl, rep = H // m, H // Hkv
+    if hl % rep and rep % hl:
+        return None
+    return (r * hl) // rep, ((r + 1) * hl - 1) // rep + 1
+
+
+def _whole(t):
+    """A DTensor's whole value (positions, masks), else ``t``."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _core_local(q, k, v, **kw):
+    """The core on this rank's local rows and heads under a mesh: the
+    batch dim over the batch axes where they divide it, query heads over
+    ``model`` where it divides ``H``, kv heads with them where it divides
+    ``Hkv``, else whole kv of which each rank takes the heads its queries
+    read.  Sequences stay whole.  Returns a DTensor placed as the
+    queries."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names
+    B, H, Hkv = q.shape[0], q.shape[2], k.shape[2]
+    batch = [i for i, n in enumerate(names) if n in ("pod", "data")]
+    split_b = B % math.prod(mesh.size(i) for i in batch) == 0
+    m = mesh.size(names.index("model")) if "model" in names else 1
+    kv_range = None
+    if "model" in names and H % m == 0 and Hkv % m:
+        kv_range = _local_kv_heads(H, Hkv, m, mesh.get_local_rank("model"))
+    split_q = "model" in names and H % m == 0 and (
+        Hkv % m == 0 or kv_range is not None)
+    q_pl, kv_pl = [], []
+    for i, n in enumerate(names):
+        if i in batch and split_b:
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+        elif n == "model" and split_q:
+            q_pl.append(Shard(2))
+            kv_pl.append(Shard(2) if kv_range is None else Replicate())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local()
+    vl = v.redistribute(mesh, kv_pl).to_local()
+    if split_q and kv_range is not None:
+        kl, vl = (t[:, :, kv_range[0]:kv_range[1]] for t in (kl, vl))
+    for name in ("q_pos", "kv_pos", "kv_valid"):
+        kw[name] = _whole(kw[name])
+    out = _core(ql, kl, vl, kernel=flash_attention_op, **kw)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
+
+
 def attention_core(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
                    window: Optional[int] = None,
                    softcap: Optional[float] = None,
@@ -119,6 +187,18 @@ def attention_core(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
     ``"pallas"`` route reads none of them: it maps from the host-side
     ``decode_position`` (the module docstring), and refuses ``kv_valid``,
     and positions given as tensors without ``decode_position``."""
+    kw = dict(q_pos=q_pos, kv_pos=kv_pos, causal=causal, window=window,
+              softcap=softcap, scale=scale, impl=impl, kv_valid=kv_valid,
+              block_kv=block_kv, decode_position=decode_position)
+    if hasattr(q, "device_mesh"):
+        return _core_local(q, k, v, **kw)
+    return _core(q, k, v, kernel=flash_attention, **kw)
+
+
+def _core(q, k, v, *, q_pos, kv_pos, causal, window, softcap, scale, impl,
+          kv_valid, block_kv, decode_position, kernel):
+    """``attention_core`` on plain tensors; ``kernel`` is the ``"pallas"``
+    route's wrapper."""
     B, Sq, H, d = q.shape
     Hkv = k.shape[2]
     if impl == "auto":
@@ -132,9 +212,9 @@ def attention_core(q, k, v, *, q_pos=None, kv_pos=None, causal: bool = True,
         causal, window, q_offset = _pallas_positions(
             Sq, k.shape[1], causal=causal, window=window,
             decode_position=decode_position)
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window, softcap=softcap,
-                               scale=scale, q_offset=q_offset)
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal=causal, window=window, softcap=softcap,
+                      scale=scale, q_offset=q_offset)
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}: use "
                          + " | ".join(IMPLS))
@@ -209,8 +289,7 @@ def gqa_init(cfg, generator: torch.Generator, *, dtype=None):
 
 
 def _proj(p, x, heads, hd):
-    y = dense_apply(p, x)
-    return y.reshape(y.shape[:-1] + (heads, hd))
+    return split_heads(dense_apply(p, x), heads, hd)
 
 
 # =============================================================== caches
@@ -240,9 +319,9 @@ def cache_update_decode(cache, k_new: torch.Tensor, v_new: torch.Tensor,
     host-side absolute ``position`` (slot ``position % size``) IN PLACE;
     returns ``cache``."""
     slot = position % cache["k"].shape[-3]
-    cache["k"].select(-3, slot).copy_(k_new.select(-3, 0))
-    cache["v"].select(-3, slot).copy_(v_new.select(-3, 0))
-    cache["pos"].select(-1, slot).fill_(position)
+    write_slot(cache["k"], k_new, -3, slot)
+    write_slot(cache["v"], v_new, -3, slot)
+    write_slot(cache["pos"], position, -1, slot)
     return cache
 
 
@@ -255,6 +334,15 @@ def cache_from_prefill(k: torch.Tensor, v: torch.Tensor, *, kind: str,
     S = k.shape[-3]
     lead, (B, _, Hkv, hd) = k.shape[:-4], k.shape[-4:]
     size = window if kind == "ring" else max_len
+    if hasattr(k, "device_mesh"):   # under a mesh: each rank its own shard
+        pl = local_placements(k, whole=(-3,))           # the slot dim whole
+        cache = cache_from_prefill(local_of(k, pl), local_of(v, pl),
+                                   kind=kind, max_len=max_len, window=window,
+                                   dtype=dtype)
+        shape = tuple(lead) + (B, size, Hkv, hd)
+        return {"k": placed(cache["k"], k.device_mesh, pl, shape),
+                "v": placed(cache["v"], k.device_mesh, pl, shape),
+                "pos": cache["pos"]}
     cache = _empty_cache(lead, B, size, Hkv, hd, dtype, k.device)
     take = min(S, size) if kind == "ring" else S
     positions = torch.arange(S - take, S, dtype=torch.int32, device=k.device)
@@ -288,6 +376,9 @@ def gqa_apply(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
         k = rmsnorm_apply(params["k_norm"], k)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
+    if cfg.shard_hints and not decode:
+        # pin the post-reshape head layout (the reference's hint sites)
+        q, k, v = hint_heads(q), hint_heads(k), hint_heads(v)
 
     Dn, Nb, S = x.shape[:3]
     fold = lambda t: t.reshape((Dn * Nb,) + tuple(t.shape[2:]))
@@ -312,7 +403,8 @@ def gqa_apply(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
                              fold(v).to(q.dtype), q_pos=rel, kv_pos=rel,
                              causal=True, window=window,
                              softcap=cfg.attn_logit_softcap, impl=impl)
-    out = dense_apply(params["wo"], out.reshape(Dn, Nb, S, H * hd))
+    out = dense_apply(params["wo"], merge_heads(out).reshape(Dn, Nb, S,
+                                                             H * hd))
     return out, (cache if decode else (k, v))
 
 
@@ -341,7 +433,8 @@ def cross_attn_apply(params, x: torch.Tensor, kv_src: torch.Tensor, *, cfg,
     fold = lambda t: t.reshape((Dn * Nb,) + tuple(t.shape[2:]))
     out = attention_core(fold(q), fold(k).to(q.dtype), fold(v).to(q.dtype),
                          causal=False, impl=impl)
-    y = dense_apply(params["wo"], out.reshape(Dn, Nb, Sq, H * hd))
+    y = dense_apply(params["wo"], merge_heads(out).reshape(Dn, Nb, Sq,
+                                                           H * hd))
     if "gate_attn" in params:
         y = per_device(torch.tanh(params["gate_attn"].to(y.dtype)), y) * y
     return y

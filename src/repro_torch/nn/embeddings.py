@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.nn import init as initializers
 from repro_torch.nn.layers import device_matmul
+from repro_torch.nn.shard_hints import grad_placed
 
 
 def embed_init(vocab: int, dim: int, generator: torch.Generator, *,
@@ -22,7 +23,7 @@ def embed_apply(params, tokens: torch.Tensor, *, scale: bool = False,
                 dtype=torch.float32) -> torch.Tensor:
     """tokens ``[D, ...]`` (or ``[1, ...]``, shared by every device) →
     ``[D, ..., dim]``: each device looks up its own table."""
-    table = params["embedding"]
+    table = grad_placed(params["embedding"])
     D = table.shape[0]
     rows = torch.arange(D, device=table.device).reshape(
         (D,) + (1,) * (tokens.dim() - 1))
@@ -36,7 +37,7 @@ def unembed_apply(params, x: torch.Tensor, *, tied: bool = True):
     """Project ``x [D, ..., dim]`` to the vocabulary.  With ``tied=True``
     ``params`` is the embedding dict and the table is used transposed."""
     if tied:
-        return device_matmul(x, params["embedding"].to(x.dtype)
+        return device_matmul(x, grad_placed(params["embedding"]).to(x.dtype)
                              .transpose(-1, -2))
     return device_matmul(x, params["kernel"].to(x.dtype))
 

@@ -29,6 +29,10 @@ from repro_torch.nn.attention import attention_core
 from repro_torch.nn.layers import dense_apply
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
 from repro_torch.nn.rope import apply_rope
+from repro_torch.nn.shard_hints import (hint_heads, local_of,
+                                        local_placements, merge_heads,
+                                        padded, placed, split_heads,
+                                        write_slot)
 
 def mla_init(cfg, generator: torch.Generator):
     """One layer's MLA params (the reference's shapes and initializers)."""
@@ -64,7 +68,7 @@ def _queries(params, x, cfg, positions):
         q = dense_apply(params["wuq"], cq)
     else:
         q = dense_apply(params["wq"], x)
-    q = q.reshape(q.shape[:-1] + (H, dn + dr))
+    q = split_heads(q, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, apply_rope(q_rope, positions, theta=cfg.rope_theta)
 
@@ -92,17 +96,19 @@ def mla_apply(params, x: torch.Tensor, *, cfg, positions: torch.Tensor,
     q_nope, q_rope = _queries(params, x, cfg, positions)
     ckv, krope = _latents(params, x, cfg, positions)
 
-    k_nope = dense_apply(params["wuk"], ckv).reshape(Dn, Nb, S, H, dn)
-    v = dense_apply(params["wuv"], ckv).reshape(Dn, Nb, S, H, dv)
+    k_nope = split_heads(dense_apply(params["wuk"], ckv), H, dn)
+    v = split_heads(dense_apply(params["wuv"], ckv), H, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)               # [D, Nb, S, H, dn+dr]
     k = torch.cat([k_nope, krope[..., None, :].expand(Dn, Nb, S, H, dr)],
                   dim=-1)
+    if cfg.shard_hints:
+        q, k = hint_heads(q), hint_heads(k)
     # pad v to the q/k head dim so the shared core runs; slice after
-    v = torch.nn.functional.pad(v, (0, dn + dr - dv))
+    v = padded(v, (0, dn + dr - dv))
     fold = lambda t: t.reshape((Dn * Nb,) + tuple(t.shape[2:]))
     out = attention_core(fold(q), fold(k), fold(v), causal=True,
                          scale=(dn + dr) ** -0.5, impl=impl)
-    out = out[..., :dv].reshape(Dn, Nb, S, H * dv)
+    out = merge_heads(out[..., :dv]).reshape(Dn, Nb, S, H * dv)
     return dense_apply(params["wo"], out), (ckv, krope)
 
 
@@ -132,6 +138,15 @@ def mla_cache_from_prefill(ckv: torch.Tensor, krope: torch.Tensor, *,
     lead, (B, S) = ckv.shape[:-3], ckv.shape[-3:-1]
     cache = _empty_cache(lead, B, max_len, ckv.shape[-1], krope.shape[-1],
                          dtype, ckv.device)
+    if hasattr(ckv, "device_mesh"):   # under a mesh: each rank its shard
+        pls = [local_placements(t, whole=(-2,)) for t in (ckv, krope)]
+        local = mla_cache_from_prefill(local_of(ckv, pls[0]),
+                                       local_of(krope, pls[1]),
+                                       max_len=max_len, dtype=dtype)
+        for (name, src), pl in zip((("ckv", ckv), ("krope", krope)), pls):
+            local[name] = placed(local[name], src.device_mesh, pl,
+                                 cache[name].shape)
+        return local
     cache["ckv"][..., :S, :] = ckv.to(dtype)
     cache["krope"][..., :S, :] = krope.to(dtype)
     cache["pos"][..., :S] = torch.arange(S, dtype=torch.int32,
@@ -155,11 +170,11 @@ def mla_decode(params, x: torch.Tensor, cache, *, cfg, position: int):
                              device=x.device)
     q_nope, q_rope = _queries(params, x, cfg, positions)  # [D, Nb, 1, H, *]
     ckv_new, krope_new = _latents(params, x, cfg, positions)
-    cache["ckv"].select(-2, position).copy_(ckv_new.select(-2, 0))
-    cache["krope"].select(-2, position).copy_(krope_new.select(-2, 0))
-    cache["pos"].select(-1, position).fill_(position)
+    write_slot(cache["ckv"], ckv_new, -2, position)
+    write_slot(cache["krope"], krope_new, -2, position)
+    write_slot(cache["pos"], position, -1, position)
 
-    wuk = params["wuk"]["kernel"].to(x.dtype).reshape(Dn, r_kv, H, dn)
+    wuk = split_heads(params["wuk"]["kernel"].to(x.dtype), H, dn)
     q_abs = torch.einsum("dbqhe,dche->dbqhc", q_nope, wuk)  # [D, Nb, 1, H, r]
     ckv = cache["ckv"].to(x.dtype)                           # [D, Nb, S, r]
     krope = cache["krope"].to(x.dtype)                       # [D, Nb, S, dr]
@@ -172,6 +187,6 @@ def mla_decode(params, x: torch.Tensor, cache, *, cfg, position: int):
                     torch.full((), NEG, device=x.device))
     p = torch.softmax(s, dim=-1)
     out_latent = torch.einsum("dbhqs,dbsc->dbqhc", p.to(x.dtype), ckv)
-    wuv = params["wuv"]["kernel"].to(x.dtype).reshape(Dn, r_kv, H, dv)
+    wuv = split_heads(params["wuv"]["kernel"].to(x.dtype), H, dv)
     out = torch.einsum("dbqhc,dche->dbqhe", out_latent, wuv)
-    return dense_apply(params["wo"], out.reshape(Dn, Nb, 1, H * dv)), cache
+    return dense_apply(params["wo"], merge_heads(out)), cache

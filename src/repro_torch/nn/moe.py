@@ -21,10 +21,14 @@ SwiGLU MLPs beside the routed experts.  The auxiliary loss (load balance
 plus router z) is one value a device: its means run over that device's
 rows and tokens, as the reference's run inside the engine's ``vmap``.
 
-``cfg.shard_hints`` only places XLA sharding in the reference and changes
-no value; the port ignores it (ROADMAP.md Queue 1 item 17).
+With ``cfg.shard_hints`` under a mesh, the expert buffers, their hidden
+states and their outputs are placed groups over ``data`` and experts
+over ``model`` (the all-to-all boundary of expert parallelism), the
+reference's three hint sites (``nn.shard_hints``); no value changes.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.core.acquisition import select_topk
 from repro_torch.nn import init as initializers
 from repro_torch.nn.layers import device_matmul, mlp_apply, mlp_init
+from repro_torch.nn.shard_hints import hint
 
 IMPLS = ("sort", "dense")
 
@@ -111,6 +116,32 @@ def _group_combine(out_buf, meta, gates_g):
     return torch.einsum("gskd,gsk->gsd", y, gates_g.to(y.dtype))
 
 
+def _groups_local(fn, *args):
+    """``fn`` on this rank's groups: DTensor args (``[G, ...]``) are
+    placed with their group dim over the batch axes where those divide
+    G, whole elsewhere, and ``fn`` runs on their local tensors; a DTensor
+    in, so tensor results come back as DTensors placed so (the rest as
+    they are).  The sort, scan and scatter of a dispatch are local to a
+    group: DTensor has no sharding rule for them."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ref = next((a for a in args if hasattr(a, "device_mesh")), None)
+    if ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    batch = [i for i, n in enumerate(mesh.mesh_dim_names)
+             if n in ("pod", "data")]
+    split = ref.shape[0] % max(1, math.prod(mesh.size(i)
+                                            for i in batch)) == 0
+    pl = [Shard(0) if (i in batch and split) else Replicate()
+          for i in range(mesh.ndim)]
+    local = [a.redistribute(mesh, pl).to_local()
+             if hasattr(a, "device_mesh") else a for a in args]
+    wrap = lambda t: DTensor.from_local(t, mesh, pl, run_check=False)
+    out = fn(*local)
+    return (wrap(out[0]),) + tuple(out[1:]) if isinstance(out, tuple) \
+        else wrap(out)
+
+
 def moe_apply(params, x: torch.Tensor, *, cfg, impl: str = "sort"):
     """x ``[D, Nb, S, d]`` over stacked params → ``(y [D, Nb, S, d], aux
     [D])``."""
@@ -140,14 +171,23 @@ def moe_apply(params, x: torch.Tensor, *, cfg, impl: str = "sort"):
                   * gates[..., None].to(x.dtype)).sum(dim=-2)   # [D, Nb, S, E]
         y = torch.einsum("debsm,dbse->dbsm", all_out, w_full)
     else:
-        buffers, meta = _group_dispatch(x.reshape(Dn * Nb, S, d),
-                                        experts.reshape(Dn * Nb, S, K), E, C)
-        buffers = buffers.reshape(Dn, Nb, E, C, d)
-        h = torch.einsum("dbecm,demf->dbecf", buffers, wg)
-        h = F.silu(h) * torch.einsum("dbecm,demf->dbecf", buffers, wu)
-        out_buf = torch.einsum("dbecf,defm->dbecm", h, wo)
-        y = _group_combine(out_buf.reshape(Dn * Nb, E, C, d), meta,
-                           gates.reshape(Dn * Nb, S, K)).reshape(Dn, Nb, S, d)
+        buffers, meta = _groups_local(
+            lambda xg, eg: _group_dispatch(xg, eg, E, C),
+            x.reshape(Dn * Nb, S, d), experts.reshape(Dn * Nb, S, K))
+        place = ((lambda t: hint(t, "data", "model", None, None))
+                 if cfg.shard_hints else (lambda t: t))
+        buffers = place(buffers.reshape(Dn, Nb, E, C, d))
+        # batched GEMMs over [D, E, Nb·C, ·]
+        xb = buffers.permute(0, 2, 1, 3, 4).reshape(Dn, E, Nb * C, d)
+        h = F.silu(torch.matmul(xb, wg)) * torch.matmul(xb, wu)
+        if cfg.shard_hints:
+            h = hint(h, "model", "data", None)
+        out_buf = place(torch.matmul(h, wo).reshape(
+            Dn, E, Nb, C, d).permute(0, 2, 1, 3, 4))
+        y = _groups_local(
+            lambda ob, gg: _group_combine(ob, meta, gg),
+            out_buf.reshape(Dn * Nb, E, C, d),
+            gates.reshape(Dn * Nb, S, K)).reshape(Dn, Nb, S, d)
 
     if "shared" in params:
         y = y + mlp_apply(params["shared"], x, activation="swiglu")

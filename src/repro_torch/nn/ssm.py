@@ -34,6 +34,7 @@ from repro_torch.kernels.ssd_scan import (ssd_intra_chunk,
 from repro_torch.nn import init as initializers
 from repro_torch.nn.layers import device_matmul, per_device
 from repro_torch.nn.norms import rmsnorm_apply, rmsnorm_init
+from repro_torch.nn.shard_hints import padded
 
 IMPLS = ("ref", "pallas")
 
@@ -83,7 +84,7 @@ def causal_conv1d(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     ``(y, new_state)``, the last W-1 inputs of the padded sequence."""
     W, S = kernel.shape[1], x.shape[-2]
     if state is None:
-        x_pad = F.pad(x, (0, 0, W - 1, 0))
+        x_pad = padded(x, (0, 0, W - 1, 0))
     else:
         x_pad = torch.cat([state.to(x.dtype), x], dim=-2)
     y = sum(x_pad[..., i:i + S, :] * per_device(kernel[:, i].to(x.dtype), x)
@@ -115,10 +116,10 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None,
     nc = -(-s // L)
     pad = nc * L - s
     if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        x = padded(x, (0, 0, 0, 0, 0, pad))
+        dt = padded(dt, (0, 0, 0, pad))
+        B = padded(B, (0, 0, 0, 0, 0, pad))
+        C = padded(C, (0, 0, 0, 0, 0, pad))
 
     rep = h // g
     xs = x.reshape(b, nc, L, h, p)
